@@ -1,0 +1,68 @@
+"""Builds the package's CUDA sources into a shared library and loads it.
+
+nvcc compiles ``csrc/<name>.cu`` (a plain C interface, no PyTorch headers)
+for sm_90a into ``build/<name>-<hash>/lib<name>.so`` inside the package
+directory, keyed by a hash of the source and the flags, at first use. The
+library is loaded with ctypes; the caller declares argtypes. A missing nvcc
+or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the hashed library exists. The compiler's
+    output (ptxas register and shared-memory report) goes to build.log."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; one handle per process."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build(name)))
+        return _libs[name]
