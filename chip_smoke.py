@@ -6,8 +6,9 @@ check it. Run from the repository root with no arguments:
 
 Phases, each of which raises (non-zero exit) on any failed check:
 
-1. the card's name and power limit; build csrc/conv3x3_gn.cu with nvcc for
-   sm_90a (timed);
+1. the card's name and power limit; build csrc/conv3x3_gn.cu and
+   csrc/gn_relu.cu with nvcc for sm_90a, one nvcc per source started
+   together (timed, ptxas report kept);
 2. the conv3x3_gn kernel vs its plain PyTorch version (f32, TF32 off) on the
    same bf16 inputs, at every shape one 4 x 64 x 192 x 192 tile batch of the
    flagship UNet3DFEAM gives it: max|k - p| <= 1e-2 * max|p|; both times;
@@ -15,12 +16,25 @@ Phases, each of which raises (non-zero exit) on any failed check:
    with the same weights: relative L2 error of the logits <= 3e-2, and 22
    kernel launches (18 fused, 4 prologue-off), every launched shape covered
    by phase 2;
-4. the main path: SlidingWindowPredictor(output='argmax', window_batch=4,
+4. the serving path: SlidingWindowPredictor(output='argmax', window_batch=4,
    bf16) over seeded 128 x 256 x 256 volumes (12 windows): a uint8 label map
    of labels < 14, 66 launches per volume, agreement with the plain model's
    label map; then predict_iter over 5 volumes (s/vol);
-5. the entry point: mpl-evaluate-torch's main() on 2 synthetic cases with
-   random weights written as .npz; its CSV.
+5. the evaluation entry point: mpl-evaluate-torch's main() on 2 synthetic
+   cases with random weights written as .npz; its CSV;
+6. the training kernels vs their plain versions at every shape one
+   full-geometry train step (B = 1, 64 x 192 x 192, bf16) launches, derived
+   from the architecture: gn_relu at every GroupNorm width of the segmenter
+   and the refiner; conv3x3_train forward and dx at every stride-1 conv (dw,
+   the library's, by relative Frobenius norm); conv3x3_gn at the refiner's
+   gradient-free shapes (B = 11); kernel ms, plain ms, TFLOP/s;
+7. the training path: the train step at the full geometry from one seeded
+   state and batch, kernel vs plain (total loss, segmenter gradients), then
+   3 kernel steps: finite losses, moving parameters, finite tokens, the exact
+   launches per step of every kernel, ms/step, peak memory;
+8. the training entry point: mpl-train-torch's main() on synthetic cases at
+   64 x 192 x 192 for 2 epochs with validation after each (through the
+   serving kernel), a checkpoint, and a resumed epoch.
 
 Prints the kernels' JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Weights are random from fixed seeds. Details
@@ -35,6 +49,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,7 +61,26 @@ WINDOW_BATCH = 4
 N_STREAM = 5
 BDX = "multimodal_pl_tpu/ops/pallas/bdx.py:247"
 BK3 = "multimodal_pl_tpu/ops/pallas/bk3_conv.py:163"
+K2 = "multimodal_pl_tpu/ops/pallas/k2_conv.py:338"
+K2_GN = "multimodal_pl_tpu/ops/pallas/k2_conv.py:277"
+GN_RELU = "multimodal_pl_tpu/ops/pallas/fused_gn_relu.py:54"
 SOURCE = "multimodal_pl_tpu_torch/csrc/conv3x3_gn.cu"
+GN_SOURCE = "multimodal_pl_tpu_torch/csrc/gn_relu.cu"
+PATCH = (64, 192, 192)      # the training patch (StepConfig / cli/train.py defaults)
+# Kernel vs plain train step. In bf16 the segmenter gradients of the plain
+# step and of the kernel step each sit 0.22 (relative Frobenius norm) from
+# the f32 plain step's at random init, so two bf16 routes differ by ~0.13
+# (H100 runs) and 5e-2 cannot hold for the whole tree: GRAD_REL_LIMIT holds it
+# at 0.2. The check that separates a wrong kernel is per leaf, over the
+# segmenter's and the refiner's 227 gradients: each leaf of the kernel step
+# may be at most LEAF_RATIO times as far from the f32 step as the plain bf16
+# step's leaf is, plus LEAF_FLOOR. With this floor a clean step needs a
+# ratio of 1.17; each of 7 dx faults planted at one conv (taps unflipped,
+# dx x 1.1, half the channels zeroed; in the segmenter or the refiner) needs
+# 1.49 to 28, while the whole-tree checks catch only 2 of them.
+GRAD_REL_LIMIT = 0.2
+LEAF_RATIO = 1.4
+LEAF_FLOOR = 1e-2
 
 # (Cin, Cout, (D, H, W), prologue, residual) of every conv3x3_gn call in one
 # forward of a 4 x 64 x 192 x 192 tile batch
@@ -85,8 +119,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_kernels(dev, results):
-    """Phase 2: kernel vs plain at every main-path shape."""
+def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
+    """Phases 2 and 6: conv3x3_gn kernel vs plain at each of ``shapes``,
+    (Cin, Cout, (D, H, W), prologue, residual), at batch ``batch`` with the
+    GroupNorm fold of ``groups`` groups."""
     import torch.nn.functional as F
 
     from multimodal_pl_tpu_torch.ops.conv import standardize_kernel
@@ -103,16 +139,16 @@ def phase_kernels(dev, results):
 
     g = torch.Generator().manual_seed(1)
     table = {}
-    for cin, cout, (d, h, w_), prologue, with_res in SHAPES:
-        x = torch.randn((WINDOW_BATCH, d, h, w_, cin), generator=g).to(dev, torch.bfloat16)
+    for cin, cout, (d, h, w_), prologue, with_res in shapes:
+        x = torch.randn((batch, d, h, w_, cin), generator=g).to(dev, torch.bfloat16)
         w = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(
             dev, torch.bfloat16)
         a = b = res = None
         if prologue:
             a, b = group_norm_fold(x, (1 + 0.1 * torch.randn(cin, generator=g)).to(dev),
-                                   (0.1 * torch.randn(cin, generator=g)).to(dev), 16)
+                                   (0.1 * torch.randn(cin, generator=g)).to(dev), groups)
         if with_res:
-            res = torch.randn((WINDOW_BATCH, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
+            res = torch.randn((batch, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
         k = conv3x3_gn(x, w, a, b, res)
         torch.cuda.synchronize()
         p = conv3x3_gn_reference(x, w, a, b, res)
@@ -120,23 +156,373 @@ def phase_kernels(dev, results):
         scale = p.float().abs().max().item()
         reps = 5 if d * h * w_ * max(cin, cout) > 2 ** 26 else 20
         row = {
-            "spec": FUSED if prologue else OFF, "cin": cin, "cout": cout, "dhw": [d, h, w_],
+            "spec": FUSED if prologue else OFF, "b": batch, "cin": cin, "cout": cout,
+            "dhw": [d, h, w_],
             "res": with_res, "max_abs_err": err, "max_abs_plain": scale,
             "ms": time_ms(lambda: conv3x3_gn(x, w, a, b, res), reps),
             "plain_ms": time_ms(lambda: conv3x3_gn_reference(x, w, a, b, res), reps),
             "eager_bf16_ms": time_ms(lambda: eager_bf16(x, w, a, b, res), reps),
         }
-        row["tflops"] = 2 * 27 * cin * cout * WINDOW_BATCH * d * h * w_ / row["ms"] / 1e9
-        print(f"  {row['spec']:12s} {cin:3d}->{cout:3d} @{d}x{h}x{w_} res={with_res!s:5s} "
+        row["tflops"] = 2 * 27 * cin * cout * batch * d * h * w_ / row["ms"] / 1e9
+        print(f"  {row['spec']:12s} B={batch} {cin:3d}->{cout:3d} @{d}x{h}x{w_} res={with_res!s:5s} "
               f"max|k-p|={err:.3g} (max|p|={scale:.3g})  kernel {row['ms']:.3f} ms "
               f"({row['tflops']:.1f} TFLOP/s)  plain f32 {row['plain_ms']:.3f} ms  "
               f"eager bf16 {row['eager_bf16_ms']:.3f} ms", flush=True)
         check(err <= 1e-2 * scale, f"kernel disagrees with plain at {row}")
-        table[(row["spec"], cin, cout, WINDOW_BATCH, d, h, w_, with_res)] = row
+        table[(row["spec"], cin, cout, batch, d, h, w_, with_res)] = row
         results["kernels"].append(row)
         del x, w, a, b, res, k, p
     torch.cuda.empty_cache()
     return table
+
+
+def _half(dhw):
+    return tuple(v // 2 for v in dhw)
+
+
+def unet_shapes(dhw, widths, layers, group, fusion_groups, precls_groups):
+    """The stride-1 conv and GroupNorm shapes one training forward of a
+    voxel U-Net launches (UNet3DFEAM, or RefinerUNet3D after its stride-2
+    stem): encoder stages of ``widths`` with ``layers`` blocks (stride 2 from
+    the second), the GN-ReLU fusion head, four one-block decoder stages, the
+    GN-ReLU classifier head. Returns (train convs [(Cin, Cout, DHW)], GNs
+    [(C, groups, DHW)], gradient-free convs [(Cin, Cout, DHW, prologue,
+    residual)]). Per block: GN1 (and the projection's GN) on the input, GN2
+    and conv2 on the output, conv1 through conv3x3_train at stride 1 and the
+    library at stride 2; without grad, stride-1 convs are fused (conv2 adds
+    an identity residual) and a stride-2 block's conv2 is prologue-off."""
+    convs, gns, nograd = [], [], []
+
+    def block(cin, cout, d_in, stride):
+        d_out = d_in if stride == 1 else _half(d_in)
+        proj = stride != 1 or cin != cout
+        gns.extend([(cin, group, d_in), (cout, group, d_out)] + [(cin, group, d_in)] * proj)
+        if stride == 1:
+            convs.extend([(cin, cout, d_out), (cout, cout, d_out)])
+            nograd.extend([(cin, cout, d_out, True, False), (cout, cout, d_out, True, not proj)])
+        else:
+            convs.append((cout, cout, d_out))
+            nograd.append((cout, cout, d_out, False, False))
+        return d_out
+
+    def stage(cin, cout, blocks, stride, d):
+        for i in range(blocks):
+            d = block(cin if i == 0 else cout, cout, d, stride if i == 0 else 1)
+        return d
+
+    d = [dhw]
+    chans = [widths[0]] + list(widths)
+    for i in range(5):
+        d.append(stage(chans[i], widths[i], layers[i], 1 if i == 0 else 2, d[-1]))
+    gns.append((widths[4], fusion_groups, d[5]))
+    for cin, cout, scale in ((widths[4], widths[2], d[4]), (widths[2], widths[1], d[3]),
+                             (widths[1], widths[0], d[2]), (widths[0], widths[0], d[1])):
+        stage(cin, cout, 1, 1, scale)
+    gns.append((widths[0], precls_groups, d[1]))
+    return convs, gns, nograd
+
+
+def training_shapes(cfg):
+    """-> {kernel key: launches per train step} for conv3x3 (train fwd/dx,
+    fused, prologue-off) and gn_relu, from the architecture of ``cfg``."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
+    b, f, k = cfg.base, cfg.refiner_filter, cfg.refine_grad_organs
+    rest = cfg.num_classes - 1 - k
+    seg_convs, seg_gns, _ = unet_shapes(PATCH, [b, 2 * b, 4 * b, 8 * b, 8 * b], cfg.layers,
+                                        16, 16, 16)
+    half = _half(PATCH)  # the refiner runs at half resolution after its stride-2 stem
+    ref_convs, ref_gns, ref_nograd = unet_shapes(half, [f, 2 * f, 4 * f, 8 * f, 8 * f],
+                                                 (1, 1, 1, 1, 1), 4, f // 2, f // 4)
+    ref_convs.append((f, f, half))                       # the refiner's conv1
+    ref_nograd.append((f, f, half, False, False))
+    conv = Counter()
+    for batch, convs in ((1, seg_convs), (k, ref_convs)):
+        for cin, cout, (d, h, w) in convs:
+            conv[(conv3x3.TRAIN_FWD, cin, cout, batch, d, h, w, False)] += 1
+            conv[(conv3x3.TRAIN_DX, cout, cin, batch, d, h, w, False)] += 1
+    for cin, cout, (d, h, w), prologue, res in ref_nograd:
+        conv[(conv3x3.FUSED if prologue else conv3x3.PROLOGUE_OFF, cin, cout, rest, d, h, w,
+              res)] += 1
+    gn = Counter()
+    for batch, gns in ((1, seg_gns), (k, ref_gns)):
+        for c, groups, dhw in gns:
+            gn[(c, groups, batch, *dhw)] += 1
+    return conv, gn
+
+
+def phase_gn(dev, results, gn_keys):
+    """Phase 6: gn_relu kernel vs plain at every training GroupNorm shape."""
+    from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
+
+    g = torch.Generator().manual_seed(3)
+    table = {}
+    for c, groups, batch, d, h, w in sorted(gn_keys):
+        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        with torch.no_grad():
+            k = group_norm_relu(x, sc, bi, groups)
+            torch.cuda.synchronize()
+            p = group_norm_relu_reference(x, sc, bi, groups)
+            err = (k.float() - p.float()).abs().max().item()
+            scale = p.float().abs().max().item()
+            reps = 5 if x.numel() > 2 ** 26 else 20
+            row = {"c": c, "groups": groups, "b": batch, "dhw": [d, h, w], "max_abs_err": err,
+                   "max_abs_plain": scale,
+                   "ms": time_ms(lambda: group_norm_relu(x, sc, bi, groups), reps),
+                   "plain_ms": time_ms(lambda: group_norm_relu_reference(x, sc, bi, groups), reps)}
+        row["gb_s"] = 3 * x.numel() * 2 / row["ms"] / 1e6  # reads x twice, writes once
+        print(f"  gn_relu B={batch} C={c:3d} G={groups:2d} @{d}x{h}x{w} max|k-p|={err:.3g} "
+              f"(max|p|={scale:.3g})  kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s)  "
+              f"plain {row['plain_ms']:.3f} ms", flush=True)
+        check(err <= 1e-2 * scale, f"gn_relu kernel disagrees with plain at {row}")
+        table[(c, groups, batch, d, h, w)] = row
+        results["gn_relu"].append(row)
+    torch.cuda.empty_cache()
+    return table
+
+
+def phase_train_conv(dev, results, conv_keys):
+    """Phase 6: conv3x3_train forward and dx (the kernel) and dw (the
+    library's convolution backward) vs f32 autograd of the plain version at
+    every training stride-1 conv shape."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.ops.conv import standardize_kernel
+    from multimodal_pl_tpu_torch.ops.conv3x3 import (
+        conv3x3_gn, conv3x3_gn_reference, conv3x3_train, weight_grad)
+
+    g = torch.Generator().manual_seed(4)
+    table = {}
+    fwd = sorted(k for k in conv_keys if k[0] == conv3x3.TRAIN_FWD)
+    for _, cin, cout, batch, d, h, w_, _ in fwd:
+        x = torch.randn((batch, d, h, w_, cin), generator=g).to(dev, torch.bfloat16)
+        w = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(
+            dev, torch.bfloat16)
+        gy = torch.randn((batch, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv3x3_train(xr, wr)
+        dx, dw = torch.autograd.grad(y, (xr, wr), gy)
+        torch.cuda.synchronize()
+        xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+        yf = conv3x3_gn_reference(xf, wf)
+        dxf, dwf = torch.autograd.grad(yf, (xf, wf), gy.float())
+        wt = w.flip((2, 3, 4)).transpose(0, 1).contiguous()  # dx's weights
+        reps = 5 if d * h * w_ * max(cin, cout) * batch > 2 ** 26 else 20
+        flop = 2 * 27 * cin * cout * batch * d * h * w_
+        row = {"b": batch, "cin": cin, "cout": cout, "dhw": [d, h, w_],
+               "fwd_err": (y.float() - yf).abs().max().item(), "fwd_max": yf.abs().max().item(),
+               "dx_err": (dx.float() - dxf).abs().max().item(), "dx_max": dxf.abs().max().item(),
+               "dw_rel": ((dw.float() - dwf).norm() / dwf.norm()).item()}
+        with torch.no_grad():
+            row.update(
+                fwd_ms=time_ms(lambda: conv3x3_train(x, w), reps),
+                fwd_plain_ms=time_ms(lambda: conv3x3_gn_reference(x, w), reps),
+                dx_ms=time_ms(lambda: conv3x3_gn(gy, wt), reps),
+                dx_plain_ms=time_ms(lambda: conv3x3_gn_reference(gy, wt), reps),
+                dw_ms=time_ms(lambda: weight_grad(x, gy, w), reps),
+                dw_plain_ms=time_ms(lambda: weight_grad(x.float(), gy.float(), w.float()), reps))
+        row["fwd_tflops"] = flop / row["fwd_ms"] / 1e9
+        row["dx_tflops"] = flop / row["dx_ms"] / 1e9
+        row["dw_tflops"] = flop / row["dw_ms"] / 1e9
+        print(f"  conv3x3_train B={batch} {cin:3d}->{cout:3d} @{d}x{h}x{w_}: fwd "
+              f"{row['fwd_err']:.3g}/{row['fwd_max']:.3g} {row['fwd_ms']:.3f} ms "
+              f"({row['fwd_tflops']:.1f} TFLOP/s, plain {row['fwd_plain_ms']:.3f}); dx "
+              f"{row['dx_err']:.3g}/{row['dx_max']:.3g} {row['dx_ms']:.3f} ms "
+              f"({row['dx_tflops']:.1f}, plain {row['dx_plain_ms']:.3f}); dw rel "
+              f"{row['dw_rel']:.2e} library {row['dw_ms']:.3f} ms ({row['dw_tflops']:.1f}, "
+              f"f32 {row['dw_plain_ms']:.3f})", flush=True)
+        check(row["fwd_err"] <= 1e-2 * row["fwd_max"], f"conv3x3_train forward disagrees: {row}")
+        check(row["dx_err"] <= 1e-2 * row["dx_max"], f"conv3x3_train dx disagrees: {row}")
+        check(row["dw_rel"] <= 1e-2, f"conv3x3_train dw disagrees: {row}")
+        table[(cin, cout, batch, d, h, w_)] = row
+        results["conv3x3_train"].append(row)
+        del x, w, gy, xr, wr, y, dx, dw, xf, wf, yf, dxf, dwf, wt
+    torch.cuda.empty_cache()
+    return table
+
+
+def train_batch(dev, cfg):
+    """A seeded batch at the training patch, as the loop ships it: bf16
+    image and atlas, uint8 labels; organ 5 is supervised and in the labeled
+    modality, so the refiner's gradient pass has a row."""
+    rng = np.random.default_rng(5)
+    nc = cfg.num_classes
+    sup = np.zeros(nc, np.float32)
+    sup[5] = 1
+    host = {"image": rng.standard_normal((1, *PATCH, 1)).astype(np.float32),
+            "label": rng.integers(0, nc, (1, *PATCH)).astype(np.uint8),
+            "catlas": rng.random((nc - 1, *PATCH)).astype(np.float32), "sup_mask": sup,
+            "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)}
+    from multimodal_pl_tpu_torch.train.loop import to_device
+
+    return to_device(host, cfg, dev)
+
+
+def phase_step(dev, results, conv_expected, gn_expected):
+    """Phase 7: the train step at the full geometry. Returns the kernel
+    launches of the 3 timed steps (conv3x3 keys, gn_relu keys)."""
+    import dataclasses
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu
+    from multimodal_pl_tpu_torch.train.state import StepConfig, build_models, create_train_state
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    cfg = StepConfig(compute_dtype=torch.bfloat16)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
+    batch = train_batch(dev, cfg)
+    lr = torch.tensor(5e-4, device=dev)
+    wf = torch.tensor(0.05, device=dev)  # past the pretrain epochs: the consistency term runs
+
+    def make(c):
+        return make_train_step(*(m.to(dev) for m in build_models(c)), c)
+
+    # kernel vs plain from one state and batch; the f32 plain step shows the
+    # size of the bf16 gap itself
+    variants = {"kernel": cfg,
+                "plain": dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain"),
+                "plain_f32": dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain",
+                                                 compute_dtype=torch.float32)}
+    losses, grads = {}, {}
+    for name, c in variants.items():
+        total, (gp, gr), _ = make(c).grads(state, batch, wf)
+        losses[name] = float(total)
+        grads[name] = {**{"params." + k: g.detach().float() for k, g in gp.items()},
+                       **{"rparams." + k: g.detach().float() for k, g in gr.items()}}
+        del total, gp, gr
+        torch.cuda.empty_cache()
+    seg = [k for k in grads["plain"] if k.startswith("params.")]
+
+    def rel(a, b, keys=seg):
+        x, y = (torch.cat([grads[v][k].flatten() for k in keys]) for v in (a, b))
+        return ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+
+    kf, pf = ({k: rel(a, "plain_f32", [k]) for k in grads["plain"]} for a in ("kernel", "plain"))
+    ratio = {k: kf[k] / max(pf[k], 1e-30) for k in kf}
+    worst = max(kf, key=lambda k: kf[k] - LEAF_RATIO * pf[k])
+    cmp = {"loss": losses, "loss_rel_kernel_plain": abs(losses["kernel"] - losses["plain"])
+           / abs(losses["plain"]), "grad_rel_kernel_plain": rel("kernel", "plain"),
+           "grad_rel_kernel_f32": rel("kernel", "plain_f32"),
+           "grad_rel_plain_f32": rel("plain", "plain_f32"),
+           "leaf_ratio_worst": [max(ratio, key=ratio.get), max(ratio.values())],
+           "leaf_ratio_median": float(np.median(list(ratio.values()))),
+           "leaf_rel_kernel_f32": kf, "leaf_rel_plain_f32": pf}
+    del grads
+    print(f"[7] step kernel vs plain: loss {losses}; rel loss {cmp['loss_rel_kernel_plain']:.3e}; "
+          f"segmenter-gradient rel Frobenius kernel-plain {cmp['grad_rel_kernel_plain']:.3e}, "
+          f"kernel-f32 {cmp['grad_rel_kernel_f32']:.3e}, plain-f32 {cmp['grad_rel_plain_f32']:.3e}; "
+          f"per leaf ({len(kf)} segmenter and refiner leaves) kernel-f32 / plain-f32: median "
+          f"{cmp['leaf_ratio_median']:.3f}, worst {cmp['leaf_ratio_worst'][1]:.3f} "
+          f"({cmp['leaf_ratio_worst'][0]})", flush=True)
+    check(cmp["loss_rel_kernel_plain"] <= 3e-2, f"step loss kernel vs plain: {cmp}")
+    check(cmp["grad_rel_kernel_plain"] <= GRAD_REL_LIMIT, f"step gradients kernel vs plain: {cmp}")
+    check(cmp["grad_rel_kernel_f32"] <= 1.25 * cmp["grad_rel_plain_f32"],
+          f"kernel step farther from the f32 step than the plain bf16 step: {cmp}")
+    check(kf[worst] <= LEAF_RATIO * pf[worst] + LEAF_FLOOR,
+          f"gradient leaf {worst}: kernel-f32 {kf[worst]:.3e} > {LEAF_RATIO} x plain-f32 "
+          f"{pf[worst]:.3e} + {LEAF_FLOOR}")
+
+    step = make(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv_total, gn_total, step_ms, metrics = Counter(), Counter(), [], []
+    first = state
+    for _ in range(3):
+        conv3x3.reset_launches()
+        gn_relu.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, lr, wf)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(Counter(conv3x3.launches) == conv_expected,
+              f"conv3x3 launches per step {dict(conv3x3.launches)} != {dict(conv_expected)}")
+        check(Counter(gn_relu.launches) == gn_expected,
+              f"gn_relu launches per step {dict(gn_relu.launches)} != {dict(gn_expected)}")
+        conv_total.update(conv3x3.launches)
+        gn_total.update(gn_relu.launches)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = dict.fromkeys(conv3x3.SPECS, 0)
+    for key, n in conv_expected.items():
+        per_step[key[0]] += n
+    steady, timed = [], state  # steady-state time: 5 more steps after the warm-up
+    for _ in range(5):
+        t0 = time.perf_counter()
+        timed, _ = step(timed, batch, lr, wf)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    del timed
+    for m in metrics:
+        check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+        check(m["grads_finite"] == 1.0 and m["disc_grads_finite"] == 1.0, f"guard fired: {m}")
+    for group, keys in (("params", ("conv1.weight", "layer4.1.conv2.weight",
+                                    "precls_conv.2.weight")),
+                        ("rparams", ("conv0.weight", "x1_resb.0.conv2.weight")),
+                        ("dparams", ("block1.weight", "head.weight"))):
+        for k in keys:
+            check(not torch.equal(getattr(first, group)[k], getattr(state, group)[k]),
+                  f"{group}.{k} did not move in 3 steps")
+    check(all(bool(torch.isfinite(t).all()) for t in state.tokens.values()), "tokens not finite")
+    results["step"] = dict(cmp, step_ms=step_ms, steady_step_ms=steady,
+                           steady_median_ms=float(np.median(steady)), peak_gib=peak_gib,
+                           metrics=metrics,
+                           launches_per_step=per_step,
+                           gn_relu_launches_per_step=sum(gn_expected.values()))
+    print(f"[7] 3 kernel steps at B=1 x {PATCH}, bf16: {[round(t, 1) for t in step_ms]} ms/step "
+          f"(then 5 more: median {np.median(steady):.1f} ms), peak {peak_gib:.2f} GiB; losses "
+          f"{[round(m['loss'], 5) for m in metrics]}; launches per step {per_step} + gn_relu "
+          f"{sum(gn_expected.values())}", flush=True)
+    del state, first, step, batch
+    torch.cuda.empty_cache()
+    return conv_total, gn_total
+
+
+def phase_train_cli(tmp):
+    """Phase 8: mpl-train-torch on synthetic cases at the training patch:
+    epochs 5 and 6 of 7 with validation after each (the loop validates from
+    epoch 5), a checkpoint, then epoch 7 resumed from it."""
+    from multimodal_pl_tpu_torch.cli import train
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint
+    from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
+
+    img_dir, atlas_path, csv_path = make_synthetic_amos(os.path.join(tmp, "train_data"), n_ct=3,
+                                                        n_mri=1, shape=(96, 96, 80), seed=1)
+    snap = os.path.join(tmp, "snap")
+    args = ["--data_dir", img_dir, "--atlas_path", atlas_path, "--supervision_csv", csv_path,
+            "--snapshot_dir", snap, "--log_every", "1", "--val_pred_every", "1"]
+    t0 = time.perf_counter()
+    conv3x3.reset_launches()
+    state = train.main(args + ["--start_epoch", "5", "--num_epochs", "7"])
+    path = latest_checkpoint(snap)
+    check(path is not None and int(state.step) > 0, f"no checkpoint in {snap}")
+    resumed = train.main(args + ["--num_epochs", "8", "--start_epoch", "7",
+                                 "--reload_from_checkpoint", "true"])
+    check(int(resumed.step) == int(state.step) * 3 // 2,
+          f"resume from step {int(state.step)} ended at {int(resumed.step)}")
+    with open(os.path.join(snap, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    check(len(losses) == int(resumed.step) and all(np.isfinite(losses)), f"losses {losses}")
+    vals = [r for r in recs if "val/val_dice_ct_mean" in r]
+    check([r["step"] for r in vals] == [5, 6, 7]
+          and all(np.isfinite(v) for r in vals for v in r.values() if isinstance(v, float)),
+          f"validation records {vals}")
+    # validation serves through the fused kernel; the train step launches it
+    # only in the refiner's gradient-free pass, at half resolution, so a fused
+    # launch at the full tile is the segmenter's validation forward
+    serving = {k: n for k, n in conv3x3.launches.items()
+               if k[0] == conv3x3.FUSED and tuple(k[4:7]) == TILE}
+    check(serving, f"validation launched no fused conv3x3_gn: {dict(conv3x3.launches)}")
+    print(f"[8] mpl-train-torch: {int(state.step)} steps in epochs 5-6, validation after each "
+          f"(sup dice sum {[round(r['val/val_dice_sup_sum'], 4) for r in vals]}, "
+          f"{sum(serving.values())} fused launches at the full tile), checkpoint "
+          f"{os.path.basename(path)}, resumed to step {int(resumed.step)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"steps": int(resumed.step), "losses": losses, "validation": vals}
 
 
 def main() -> int:
@@ -144,34 +530,50 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from multimodal_pl_tpu.data.synthetic import make_synthetic_amos
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
     from multimodal_pl_tpu_torch.models import UNet3DFEAM
-    from multimodal_pl_tpu_torch.ops import _build, conv3x3
+    from multimodal_pl_tpu_torch.ops import _build, conv3x3, gn_relu
+    from multimodal_pl_tpu_torch.train.state import StepConfig
+    from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     results = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": []}
+               "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
+               "gn_relu": [], "conv3x3_train": [], "phase_s": {}}
+    t_phase = time.perf_counter()
 
-    # ---- phase 1: build ----------------------------------------------------
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        results["phase_s"][name] = now - t_phase
+        print(f"    ({name}: {now - t_phase:.1f} s)", flush=True)
+        t_phase = now
+
+    # ---- phase 1: build, one nvcc per source, all started together ----------
     print(f"[1] card: {card}", flush=True)
     t0 = time.perf_counter()
-    lib_path = _build.build("conv3x3_gn")
+    names = ("conv3x3_gn", "gn_relu")
+    with ThreadPoolExecutor(len(names)) as pool:
+        lib_paths = dict(zip(names, pool.map(_build.build, names)))
     conv3x3._lib()
+    gn_relu._lib()
     results["build_s"] = time.perf_counter() - t0
-    print(f"[1] built {lib_path.name} in {results['build_s']:.1f} s", flush=True)
-    ptxas = [ln for ln in (lib_path.parent / "build.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    results["ptxas"] = ptxas
+    print(f"[1] built {', '.join(p.name for p in lib_paths.values())} in "
+          f"{results['build_s']:.1f} s", flush=True)
+    results["ptxas"] = {name: [ln for ln in (path.parent / "build.log").read_text().splitlines()
+                               if "registers" in ln or "spill" in ln]
+                        for name, path in lib_paths.items()}
+    phase_done("build")
 
     # ---- phase 2: kernel vs plain at every main-path shape ------------------
     print("[2] conv3x3_gn kernel vs plain (bf16 inputs; plain in f32, TF32 off)", flush=True)
     table = phase_kernels(dev, results)
+    phase_done("serving kernels")
 
     # ---- phase 3: whole model, kernel vs plain -----------------------------
     model = UNet3DFEAM(deep_up=True, conv_impl="kernel",
@@ -198,7 +600,8 @@ def main() -> int:
           f"launches {totals}; forward {fwd_ms:.1f} ms (plain {plain_fwd_ms:.1f} ms)",
           flush=True)
     check(rel <= 3e-2, f"whole-model relative L2 error {rel} > 3e-2")
-    check(totals == {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4}, f"launches {totals} != 18 + 4")
+    check(totals == {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
+                     conv3x3.TRAIN_DX: 0}, f"launches {totals} != 18 + 4")
     missing = sorted(set(per_forward) - set(table))
     check(not missing, f"shapes launched by the model but not checked in phase 2: {missing}")
     del lk, lp, x
@@ -227,10 +630,9 @@ def main() -> int:
     check(labels.dtype == torch.uint8 and tuple(labels.shape) == VOL,
           f"label map {labels.dtype} {tuple(labels.shape)}")
     check(int(labels.max()) < NC, "label out of range")
-    check(main_launches == {conv3x3.FUSED: 54, conv3x3.PROLOGUE_OFF: 12},
+    check(main_launches == {conv3x3.FUSED: 54, conv3x3.PROLOGUE_OFF: 12, conv3x3.TRAIN_FWD: 0,
+                            conv3x3.TRAIN_DX: 0},
           f"main-path launches {main_launches} != 54 + 12 (66)")
-    for key, n in main_launches.items():
-        check(n > 0, f"kernel {key} never launched on the main path")
     agree = (predictor(plain)(vol) == labels).float().mean().item()
     check(agree >= 0.95, f"label agreement with the plain model {agree} < 0.95")
     t0 = time.perf_counter()
@@ -266,19 +668,90 @@ def main() -> int:
     print(f"[5] mpl-evaluate-torch: {len(rows) - 1} cases written to per_case_dice.csv",
           flush=True)
 
+    check(not gn_relu.launches, f"gn_relu launched on the serving path: {dict(gn_relu.launches)}")
+    phase_done("serving")
+
+    # ---- phase 6: the training kernels vs plain at every train-step shape ----
+    conv_expected, gn_expected = training_shapes(StepConfig())
+    print(f"[6] training kernels vs plain at every shape of one B=1 x {PATCH} train step "
+          f"(bf16 inputs; plain in f32, TF32 off)", flush=True)
+    gn_table = phase_gn(dev, results, gn_expected)
+    train_table = phase_train_conv(dev, results, conv_expected)
+    rest = sorted({k for k in conv_expected if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)})
+    nograd_table = {}
+    for batch in sorted({k[3] for k in rest}):
+        nograd_table.update(phase_kernels(
+            dev, results, [(k[1], k[2], k[4:7], k[0] == conv3x3.FUSED, k[7])
+                           for k in rest if k[3] == batch], batch=batch, groups=4))
+    phase_done("training kernels")
+
+    # ---- phase 7: the training path ------------------------------------------
+    # every step launches exactly the derived shapes (checked per step), and
+    # phase 6 held the kernels against their plain versions at each of them
+    conv_run, gn_run = phase_step(dev, results, conv_expected, gn_expected)
+    phase_done("train step")
+
+    # ---- phase 8: the training entry point -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        results["train_cli"] = phase_train_cli(tmp)
+    phase_done("train entry point")
+
     kernels = []
+    serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
     for spec, name, replaces in ((conv3x3.FUSED, "conv3x3_gn fused GN-ReLU prologue", BDX),
                                  (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3)):
-        rows_s = [r for r in results["kernels"] if r["spec"] == spec]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": main_launches[spec],
-            "max_abs_err": max(r["max_abs_err"] for r in rows_s),
+            "max_abs_err": max(r["max_abs_err"] for r in serving.values() if r["spec"] == spec),
             # device time of this kernel's launches in one tile-batch forward
-            "ms": sum(n * table[k]["ms"] for k, n in per_forward.items() if k[0] == spec),
-            "plain_ms": sum(n * table[k]["plain_ms"] for k, n in per_forward.items()
+            "ms": sum(n * serving[k]["ms"] for k, n in per_forward.items() if k[0] == spec),
+            "plain_ms": sum(n * serving[k]["plain_ms"] for k, n in per_forward.items()
                             if k[0] == spec),
         })
+
+    # per train step: each launch's per-shape time from phase 6
+    def per_step(specs, field):
+        out = 0.0
+        for key, n in conv_expected.items():
+            if key[0] not in specs:
+                continue
+            if key[0] == conv3x3.TRAIN_FWD:
+                row = train_table[(key[1], key[2], *key[3:7])]
+                out += n * row["fwd_" + field]
+            elif key[0] == conv3x3.TRAIN_DX:
+                row = train_table[(key[2], key[1], *key[3:7])]
+                out += n * row["dx_" + field]
+            else:
+                out += n * nograd_table[key][field]
+        return out
+
+    train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
+    kernels.append({
+        "name": "conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)",
+        "route": "cuda", "source": SOURCE, "replaces": K2,
+        "launches": sum(n for k, n in conv_run.items() if k[0] in train_specs),
+        "max_abs_err": max([r["fwd_err"] for r in train_table.values()]
+                           + [r["dx_err"] for r in train_table.values()]
+                           + [r["max_abs_err"] for k, r in nograd_table.items()
+                              if k[0] == conv3x3.PROLOGUE_OFF]),
+        "ms": per_step(train_specs, "ms"), "plain_ms": per_step(train_specs, "plain_ms")})
+    kernels.append({
+        "name": "conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass",
+        "route": "cuda", "source": SOURCE, "replaces": K2_GN,
+        "launches": sum(n for k, n in conv_run.items() if k[0] == conv3x3.FUSED),
+        "max_abs_err": max(r["max_abs_err"] for k, r in nograd_table.items()
+                           if k[0] == conv3x3.FUSED),
+        "ms": per_step((conv3x3.FUSED,), "ms"), "plain_ms": per_step((conv3x3.FUSED,), "plain_ms")})
+    kernels.append({
+        "name": "gn_relu", "route": "cuda", "source": GN_SOURCE, "replaces": GN_RELU,
+        "launches": sum(gn_run.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in gn_table.values()),
+        "ms": sum(n * gn_table[k]["ms"] for k, n in gn_expected.items()),
+        "plain_ms": sum(n * gn_table[k]["plain_ms"] for k, n in gn_expected.items())})
+    results["train_step_library_dw_ms"] = sum(
+        n * train_table[(k[1], k[2], *k[3:7])]["dw_ms"] for k, n in conv_expected.items()
+        if k[0] == conv3x3.TRAIN_FWD)
     results["kernels_line"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

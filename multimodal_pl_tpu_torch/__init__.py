@@ -11,10 +11,13 @@ the JAX package. Parameters use the reference torch ``state_dict`` names, so
 a reference ``.pth`` loads with ``load_state_dict(strict=True)``
 (:mod:`multimodal_pl_tpu_torch.convert`).
 
-The ported slice is the FEAM sliding-window inference path: ops, the
-UNet3DFEAM segmenter, the predictor, the metrics and ``mpl-evaluate-torch``.
-Its stride-1 3x3x3 convs run a hand-written CUDA kernel for sm_90a
-(``csrc/conv3x3_gn.cu``), built with nvcc on first use
+Ported: the FEAM sliding-window inference path (ops, the UNet3DFEAM
+segmenter, the predictor, the metrics, ``mpl-evaluate-torch``) and training
+(the refiner, the discriminators, the losses, the train step, loop and
+checkpoints, ``mpl-train-torch``). Every stride-1 3x3x3 conv of the U-Nets
+past their stems runs a hand-written CUDA kernel for sm_90a (``csrc/conv3x3_gn.cu``), forward and
+dx under autograd; every GroupNorm -> ReLU under autograd runs
+``csrc/gn_relu.cu``. Both are built with nvcc on first use
 (:mod:`multimodal_pl_tpu_torch.ops._build`).
 """
 

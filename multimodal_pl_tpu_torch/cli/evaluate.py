@@ -7,8 +7,9 @@ dataset, a per-case dice CSV, per-organ CT/MRI tables, and optional NIfTI
 prediction dumps. ``--reload_path`` takes a reference ``.pth`` or an
 ``.npz`` written by :func:`multimodal_pl_tpu_torch.convert.save_npz`;
 comma-separated paths are an ensemble whose logits are averaged. A missing
-checkpoint leaves the seeded random weights. Runs on the GPU when there is
-one, else on the CPU (where the conv kernel's plain version runs).
+checkpoint leaves the seeded random weights. ``--device`` (default
+``cuda``) raises when there is no GPU; ``cpu`` runs only when asked for (the
+conv kernel's plain version then runs).
 """
 
 from __future__ import annotations
@@ -29,6 +30,16 @@ def str2bool(v) -> bool:
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device for ``--device``: a CUDA device raises when no GPU is
+    visible instead of falling back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available; "
+                           "pass --device cpu to run on the CPU")
+    return device
 
 
 def get_arguments() -> argparse.ArgumentParser:
@@ -59,6 +70,8 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--deep_up", type=str2bool, default=True)
     p.add_argument("--bf16", type=str2bool, default=True,
                    help="bfloat16 tile compute (f32 Gaussian blend)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
     return p
 
 
@@ -110,7 +123,7 @@ def main(argv=None):
     from multimodal_pl_tpu_torch.infer.metrics import label_scores, organ_scores_atlas
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     d, h, w = map(int, args.input_size.split(","))
     nfg = args.num_classes - 1
     members = _load_members(args, device)

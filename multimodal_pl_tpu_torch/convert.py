@@ -1,9 +1,13 @@
-"""Checkpoint conversion and loading for the FEAM segmenter.
+"""Checkpoint conversion and loading.
 
 - :func:`state_dict_from_jax` turns the JAX package's params (flax nested
   dicts of arrays) and class tokens into a reference-style ``state_dict``
   (the layout of ``multimodal_pl_tpu/train/torch_import.py:154``), which the
-  port's model loads as it is.
+  port's model loads as it is. The same mapping serves the refiner (the
+  inverse of ``torch_import.refiner_state_dict_to_params``) and the
+  discriminators (their ``blockN``/``min_blockN``/``head`` names).
+- :func:`train_state_from_jax` carries a whole JAX ``TrainState`` across as
+  the port's :class:`~multimodal_pl_tpu_torch.train.state.TrainState`.
 - :func:`load_feam_state_dict` loads such a dict (a reference ``.pth`` or an
   ``.npz`` written by :func:`save_npz`) into the port's model with
   ``strict=True``, after stripping DataParallel's ``module.`` prefix, and
@@ -11,7 +15,9 @@
 
 Conventions: conv weights (kd, kh, kw, in, out) -> (out, in, kd, kh, kw);
 linear weights (in, out) -> (out, in); norm scale -> weight; the heads'
-``gn``/``conv`` -> nn.Sequential indices ``0``/``2``; ``blockJ`` -> ``J``.
+``gn``/``conv`` -> nn.Sequential indices ``0``/``2``; a stage's ``blockJ``
+-> ``J`` (a ``blockN`` that holds the parameters itself, a discriminator
+layer, keeps its name).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from multimodal_pl_tpu_torch.train.state import TrainState
 
 _HEAD_NAMES = {"fusion": "fusionConv", "precls": "precls_conv"}
 _TOKEN_KEYS = {"t1": "class_token1", "t2": "class_token2", "t3": "class_token3"}
@@ -37,8 +45,8 @@ def _flatten(tree: Mapping, prefix=()):
 def _torch_key(path) -> str:
     path = list(path[1:] if path[0] == "encoder" else path)
     out = []
-    for p in path[:-1]:
-        if p.startswith("block"):
+    for i, p in enumerate(path[:-1]):
+        if p.startswith("block") and i < len(path) - 2:  # a stage's blockJ
             out.append(p[len("block"):])
         else:
             out.append({**_HEAD_NAMES, "gn": "0", "conv": "2"}.get(p, p))
@@ -66,6 +74,18 @@ def state_dict_from_jax(params: Mapping, tokens: Optional[Mapping] = None
         if tokens and key in tokens:
             sd[name] = torch.from_numpy(np.array(tokens[key], dtype=np.float32))
     return sd
+
+
+def train_state_from_jax(state) -> TrainState:
+    """A JAX ``TrainState`` (params, rparams, dparams, momentum, tokens,
+    step, epoch) -> the port's TrainState of f32 CPU tensors."""
+    sd = state_dict_from_jax
+    return TrainState(
+        params=sd(state.params), rparams=sd(state.rparams), dparams=sd(state.dparams),
+        momentum=(sd(state.momentum[0]), sd(state.momentum[1])),
+        tokens={k: torch.from_numpy(np.array(v, dtype=np.float32))
+                for k, v in state.tokens.items()},
+        step=torch.tensor(int(state.step)), epoch=torch.tensor(int(state.epoch)))
 
 
 def load_feam_state_dict(model: torch.nn.Module, sd: Mapping

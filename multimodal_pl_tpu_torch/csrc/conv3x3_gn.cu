@@ -1,11 +1,16 @@
 // Fused GroupNorm-apply -> ReLU -> 3x3x3 SAME conv (+ residual) for Hopper.
 //
-// Replaces two TPU kernels of the JAX package, which compute the same
+// Replaces four TPU kernels of the JAX package, which compute the same
 // function on TPU-shaped layouts:
 //   - multimodal_pl_tpu/ops/pallas/bdx.py::bdx_gn_conv (prologue on, optional
 //     residual): every stride-1 residual block of the FEAM U-Net;
 //   - multimodal_pl_tpu/ops/pallas/bk3_conv.py::bk3_impl (prologue off): the
-//     second conv of every stride-2 block.
+//     second conv of every stride-2 block;
+//   - multimodal_pl_tpu/ops/pallas/k2_conv.py::k2_conv (prologue off): the
+//     training conv's forward, and its dx on flipped taps with the channels
+//     swapped (ops/conv3x3.py::conv3x3_train);
+//   - multimodal_pl_tpu/ops/pallas/k2_conv.py::k2_gn_conv (prologue on, no
+//     residual): the refiner's gradient-free pass in the train step.
 //
 // What it computes, for NDHWC bf16 x (B, D, H, W, Cin):
 //   t   = bf16(relu(f32(x) * a[b, c] + b[b, c]))   (prologue on; t = x when off)
@@ -14,7 +19,10 @@
 //   y   = sum_{taps, ci} t * w                      (f32 accumulation)
 //   out = bf16(y + f32(res))                        (res optional)
 // a and b are the folded GroupNorm rows (B, Cin) f32; w is packed
-// (27, Cin, Cout) bf16 with tap index kd*9 + kh*3 + kw.
+// (27, Cin, Cout) bf16 with tap index kd*9 + kh*3 + kw. Cin and Cout are
+// multiples of 8 (the refiner's stages are 24 wide): a channel chunk or an
+// output-channel block that runs past the tensor is zero-filled in shared
+// memory up to the 16-wide WMMA step, and its outputs are not stored.
 //
 // Design (an implicit GEMM: M = output voxels, N = Cout, K = 27 * Cin):
 //   - one block computes a 2 x 4 x 16 (D x H x W) output tile against BN
@@ -118,7 +126,7 @@ conv3x3_gn_kernel(const __nv_bfloat16* __restrict__ x,
       const int gd = d0 - 1 + ld, gh = h0 - 1 + lh, gw = w0 - 1 + lw;
       const int c = c0 + v * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
+      if (c < Cin && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
         const long long off =
             (((bi * D + gd) * H + gh) * (long long)W + gw) * Cin + c;
         val = *reinterpret_cast<const uint4*>(x + off);
@@ -144,7 +152,7 @@ conv3x3_gn_kernel(const __nv_bfloat16* __restrict__ x,
         const int tap = i / (NV * KC);
         const int n = n0 + v * 8;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (n < Cout)
+        if (n < Cout && c0 + r < Cin)
           val = *reinterpret_cast<const uint4*>(
               w + ((long long)(kd * 9 + tap) * Cin + c0 + r) * Cout + n);
         *reinterpret_cast<uint4*>(ws + (tap * KC + r) * S::WS + v * 8) = val;
@@ -220,7 +228,7 @@ cudaError_t launch(const void* x, const void* w, const float* a,
   const int tiles_w = (W + TW - 1) / TW;
   const long long nblocks = (long long)B * tiles_d * tiles_h * tiles_w;
   if (nblocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dim3 grid(unsigned(nblocks), unsigned(Cout / BN));
+  dim3 grid(unsigned(nblocks), unsigned((Cout + BN - 1) / BN));
   conv3x3_gn_kernel<KC, BN><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       a, b, static_cast<const __nv_bfloat16*>(res),
@@ -248,7 +256,7 @@ extern "C" {
 int conv3x3_gn_bf16(const void* x, const void* w, const void* a,
                     const void* b, const void* res, void* out, int B, int D,
                     int H, int W, int Cin, int Cout, void* stream) {
-  if (Cin % 16 != 0 || Cout % 16 != 0 || B < 1 || D < 1 || H < 1 || W < 1)
+  if (Cin % 8 != 0 || Cout % 8 != 0 || B < 1 || D < 1 || H < 1 || W < 1)
     return int(cudaErrorInvalidValue);
   if ((a == nullptr) != (b == nullptr)) return int(cudaErrorInvalidValue);
   const float* fa = static_cast<const float*>(a);

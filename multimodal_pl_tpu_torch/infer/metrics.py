@@ -4,7 +4,8 @@
 Dice, sensitivity and specificity on label maps, each with the reference's
 +1 denominator smoothing and a per-sample mean, vectorized over the organs.
 The atlas-blended variant thresholds (p + 0.15) > (1 - atlas) instead of
-taking the argmax (evaluate_amos.py:146).
+taking the argmax (evaluate_amos.py:146); the refiner variant scores its
+per-organ binary heads (evaluate_amos.py:156-182).
 """
 
 from __future__ import annotations
@@ -70,4 +71,12 @@ def organ_scores_atlas(logits: torch.Tensor, labels: torch.Tensor,
     b = labels.shape[0]
     cpred = (probs[..., 1:] + boost) > (1.0 - atlas)
     p = cpred.movedim(-1, 0).reshape(num_fg, b, -1).float()
+    return _organ_scores(p, _one_hot_fg(labels, num_fg))
+
+
+def refiner_organ_scores(refiner_logits: torch.Tensor, labels: torch.Tensor, num_fg: int = 13):
+    """Reference get_dice2 (evaluate_amos.py:156-182): per-organ binary heads.
+    refiner_logits: (num_fg, D, H, W, 2); labels: (1, D, H, W). Returns
+    (dice, senc, spec), each (num_fg,)."""
+    p = (refiner_logits.argmax(dim=-1) == 1).reshape(num_fg, 1, -1).float()
     return _organ_scores(p, _one_hot_fg(labels, num_fg))

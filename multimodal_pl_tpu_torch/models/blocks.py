@@ -5,17 +5,25 @@ Parameter names follow the reference ``state_dict`` (``gn1.weight``,
 ``conv1.weight``, ``downsample.0.weight``, ...). Parameters are f32; each op
 casts them to the activation dtype, as the JAX package does.
 
-Routing of the 3x3x3 convs of :class:`NoBottleneck`:
+Routing of :class:`NoBottleneck` and :class:`GNReLUConv`, by grad mode:
 
-- stride 1: both convs run ``conv3x3_gn`` with the previous GroupNorm folded
-  into its prologue; conv2 also adds the residual in its epilogue when the
-  block has no projection;
-- stride 2: conv1 is the library conv (after GN -> ReLU); conv2 runs
-  ``conv3x3_gn`` with the prologue off after a GN -> ReLU in torch.
+- without autograd recording (inference, the train step's gradient-free
+  refiner pass):
+  - stride 1: both convs run ``conv3x3_gn`` with the previous GroupNorm
+    folded into its prologue; conv2 also adds the residual in its epilogue
+    when the block has no projection;
+  - stride 2: conv1 is the library conv (after GN -> ReLU); conv2 runs
+    ``conv3x3_gn`` with the prologue off after a GN -> ReLU in torch;
+  - the heads run GN -> ReLU in torch;
+- while autograd records (grad mode on and the input or a weight requires
+  grad), the route the JAX package trains: every GN -> ReLU is
+  ``group_norm_relu``, every stride-1 conv ``conv3x3_train``, the stride-2
+  conv1 the library conv.
 
-``conv_impl='kernel'`` calls :func:`~multimodal_pl_tpu_torch.ops.conv3x3.conv3x3_gn`
-(the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor);
-``conv_impl='plain'`` calls the plain version everywhere.
+``conv_impl`` / ``gn_impl`` = ``'kernel'`` calls the ops that launch the
+CUDA kernels on a CUDA tensor (their plain versions on a CPU tensor);
+``'plain'`` calls the plain versions everywhere. The Cin=1 stem and the 1x1
+heads are library convs, as XLA runs them in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,16 +34,43 @@ import torch
 from torch import nn
 
 from multimodal_pl_tpu_torch.ops.conv import conv3d, standardize_kernel
-from multimodal_pl_tpu_torch.ops.conv3x3 import conv3x3_gn, conv3x3_gn_reference
+from multimodal_pl_tpu_torch.ops.conv3x3 import (
+    conv3x3_gn,
+    conv3x3_gn_reference,
+    conv3x3_train,
+)
+from multimodal_pl_tpu_torch.ops.gn_relu import IMPLS as GN_IMPLS
+from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu
 from multimodal_pl_tpu_torch.ops.norm import group_norm, group_norm_fold
 
+# stride-1 3x3x3 convs without and with autograd recording
 CONV_IMPLS = {"kernel": conv3x3_gn, "plain": conv3x3_gn_reference}
+TRAIN_CONV_IMPLS = {"kernel": conv3x3_train, "plain": conv3x3_gn_reference}
 
 
 def conv3x3_impl(conv_impl: str):
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl must be one of {sorted(CONV_IMPLS)}, got {conv_impl!r}")
     return CONV_IMPLS[conv_impl]
+
+
+def check_gn_impl(gn_impl: str) -> str:
+    if gn_impl not in GN_IMPLS:
+        raise ValueError(f"gn_impl must be one of {GN_IMPLS}, got {gn_impl!r}")
+    return gn_impl
+
+
+def recording(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Autograd records this op: grad mode on and x or the weight needs grad."""
+    return torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad)
+
+
+def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, conv_impl: str) -> torch.Tensor:
+    """Stride-1 3x3x3 SAME conv outside a residual block (the refiner's conv1):
+    ``conv3x3_train`` while autograd records, else ``conv3x3_gn`` with the
+    prologue off."""
+    table = TRAIN_CONV_IMPLS if recording(x, w) else CONV_IMPLS
+    return table[conv_impl](x.contiguous(), w)
 
 
 @torch.no_grad()
@@ -94,17 +129,30 @@ class GroupNorm(nn.Module):
         """(a, b) rows (B, C) f32 with ``self(x) == x * a + b``."""
         return group_norm_fold(x, self.weight, self.bias, self.num_groups, self.eps)
 
+    def relu(self, x, gn_impl: str):
+        """relu(self(x)) through :func:`~multimodal_pl_tpu_torch.ops.gn_relu.group_norm_relu`
+        (eps 1e-5, the kernel's)."""
+        return group_norm_relu(x, self.weight, self.bias, self.num_groups, gn_impl)
+
 
 class GNReLUConv(nn.Sequential):
     """GroupNorm -> ReLU -> 1x1x1 conv head (reference fusionConv / deepout /
-    precls_conv / downsample: an nn.Sequential, so keys are .0 and .2)."""
+    precls_conv / downsample: an nn.Sequential, so keys are .0 and .2). While
+    autograd records, the GN -> ReLU is ``group_norm_relu``."""
 
     def __init__(self, cin: int, cout: int, num_groups: int = 16, stride: int = 1,
-                 weight_std: bool = False, bias: bool = True):
+                 weight_std: bool = False, bias: bool = True, gn_impl: str = "kernel"):
         super().__init__(
             GroupNorm(num_groups, cin), nn.ReLU(),
             WSConv3d(cin, cout, kernel=1, stride=stride, padding=0, bias=bias,
                      weight_std=weight_std))
+        self.gn_impl = check_gn_impl(gn_impl)
+
+    def forward(self, x):
+        gn, relu, conv = self
+        if recording(x, gn.weight):
+            return conv(gn.relu(x, self.gn_impl))
+        return conv(relu(gn(x)))
 
 
 class NoBottleneck(nn.Module):
@@ -114,7 +162,8 @@ class NoBottleneck(nn.Module):
     projection shortcut when the stride or the channel count changes."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, group: int = 16,
-                 weight_std: bool = True, conv_impl: str = "kernel"):
+                 weight_std: bool = True, conv_impl: str = "kernel",
+                 gn_impl: str = "kernel"):
         super().__init__()
         self.stride = stride
         self.gn1 = GroupNorm(group, inplanes)
@@ -124,11 +173,15 @@ class NoBottleneck(nn.Module):
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = GNReLUConv(inplanes, planes, group, stride,
-                                         weight_std=weight_std, bias=False)
+                                         weight_std=weight_std, bias=False, gn_impl=gn_impl)
         self.conv3x3 = conv3x3_impl(conv_impl)
+        self.conv3x3_train = TRAIN_CONV_IMPLS[conv_impl]
+        self.gn_impl = check_gn_impl(gn_impl)
 
     def forward(self, x):
         x = x.contiguous()
+        if recording(x, self.conv2.weight):
+            return self._train_forward(x)
         if self.stride == 1:
             a, b = self.gn1.fold(x)
             out = self.conv3x3(x, self.conv1.kernel_for(x.dtype), a, b)
@@ -141,14 +194,26 @@ class NoBottleneck(nn.Module):
         out = self.conv3x3(out, self.conv2.kernel_for(x.dtype))
         return out + self.downsample(x)
 
+    def _train_forward(self, x):
+        """The voxel route of the JAX NoBottleneck (models/blocks.py:183-202)."""
+        out = self.gn1.relu(x, self.gn_impl)
+        if self.stride == 1:
+            out = self.conv3x3_train(out, self.conv1.kernel_for(x.dtype))
+        else:
+            out = self.conv1(out)
+        out = self.gn2.relu(out, self.gn_impl)
+        out = self.conv3x3_train(out, self.conv2.kernel_for(x.dtype))
+        return out + (x if self.downsample is None else self.downsample(x))
+
 
 class ResStage(nn.Sequential):
     """A stack of NoBottleneck blocks — reference _make_layer
     (unet3D.py:1029-1049). Only the first block strides / changes channels."""
 
     def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1,
-                 group: int = 16, weight_std: bool = True, conv_impl: str = "kernel"):
+                 group: int = 16, weight_std: bool = True, conv_impl: str = "kernel",
+                 gn_impl: str = "kernel"):
         super().__init__(*[
             NoBottleneck(inplanes if i == 0 else planes, planes,
-                         stride if i == 0 else 1, group, weight_std, conv_impl)
+                         stride if i == 0 else 1, group, weight_std, conv_impl, gn_impl)
             for i in range(blocks)])

@@ -1,15 +1,24 @@
-"""Class-token state, port of ``multimodal_pl_tpu/models/tokens.py:29-41``.
+"""Class-token state and its EMA, port of ``multimodal_pl_tpu/models/tokens.py``.
 
-Tokens are explicit state passed to the model's forward, not parameters: the
-reference kept them as plain tensors (unet3D.py:1016-1021). Their EMA update
-(``renew_tokens``) belongs to training and is not ported yet.
+Tokens are explicit state passed to the model's forward and updated by the
+train step, not parameters: the reference kept them as plain tensors
+(unet3D.py:1016-1021) and mutated them in place after every step
+(renew_token :1051-1068).
+
+renew semantics per scale s with feature map x_s (B, d, h, w, C_s) and the
+agreement mask fmask (B, D, H, W) of labels 1..num_classes-1: for every class
+l with at least one voxel at feature resolution,
+token[l] <- (1 - alpha) * token[l] + alpha * mean_{masked voxels} x_s. The
+mask is nearest-downsampled with the torch floor convention.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
+
+from multimodal_pl_tpu_torch.ops.resize import resize_nearest
 
 TOKEN_DIMS = {"t1": 128, "t2": 64, "t3": 32}
 
@@ -21,3 +30,48 @@ def init_class_tokens(generator: torch.Generator, num_classes: int = 14,
     dims = dims or TOKEN_DIMS
     return {name: torch.randn((num_classes - 1, dim), generator=generator)
             for name, dim in dims.items()}
+
+
+def masked_class_sums(x: torch.Tensor, mask: torch.Tensor, num_fg: int):
+    """x: (B, d, h, w, C); mask: (B, d, h, w) labels (0 = none). Returns
+    (sums (num_fg, C) f32, counts (num_fg,) in x.dtype) for labels 1..num_fg."""
+    b, c = x.shape[0], x.shape[-1]
+    mf = mask.reshape(b, -1)
+    classes = torch.arange(1, num_fg + 1, device=mask.device).to(mf.dtype)
+    onehot = (mf[None] == classes[:, None, None]).to(x.dtype)  # (L, B, S)
+    counts = onehot.sum(dim=(1, 2))
+    sums = torch.einsum("lbs,bsc->lc", onehot.float(), x.reshape(b, -1, c).float())
+    return sums, counts
+
+
+def masked_class_means(x: torch.Tensor, mask: torch.Tensor, num_fg: int):
+    """Per-class masked channel means (num_fg, C) in x.dtype, and the counts."""
+    sums, counts = masked_class_sums(x, mask, num_fg)
+    means = sums / torch.clamp(counts.float(), min=1.0)[:, None]
+    return means.to(x.dtype), counts
+
+
+def renew_tokens(tokens: Dict[str, torch.Tensor], features: Sequence[torch.Tensor],
+                 fmask: torch.Tensor, alpha: float = 0.01) -> Dict[str, torch.Tensor]:
+    """The token EMA (reference model.renew_token). features: the decoder
+    feature maps at the three EAM scales, channels-last; fmask: (B, D, H, W)
+    labels where the prediction and the supervised label agree."""
+    new = dict(tokens)
+    for name, x in zip(list(tokens), features):
+        tok = tokens[name]
+        m = resize_nearest(fmask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
+        means, counts = masked_class_means(x, m, tok.shape[0])
+        upd = tok * (1.0 - alpha) + alpha * means.to(tok.dtype)
+        new[name] = torch.where((counts > 0)[:, None], upd, tok)
+    return new
+
+
+def agreement_mask(cmask: torch.Tensor, pred_labels: torch.Tensor,
+                   sup_mask: torch.Tensor) -> torch.Tensor:
+    """Voxels where the supervised label and the argmax prediction agree
+    (train_amos_atlas_final.py:383-389): cmask (B, D, H, W) labels with the
+    unsupervised organs zeroed, pred_labels its argmax counterpart, sup_mask
+    (num_classes,) 0/1."""
+    agree = (cmask == pred_labels) & (cmask > 0)
+    supervised = sup_mask[cmask.long()] > 0
+    return torch.where(agree & supervised, cmask, torch.zeros_like(cmask))

@@ -12,7 +12,9 @@ GN-ReLU-1x1 classifier.
 features, tokens)`` as the JAX model does. ``aux=False`` returns only the
 logits and skips the EAMs, the deep heads and the full-resolution resizes of
 the attention maps: none of them feeds the logits, and eager PyTorch has no
-dead-code elimination to drop them as XLA does under ``jit``.
+dead-code elimination to drop them as XLA does under ``jit``. ``deep=False``
+skips the deep heads alone (``deep_maps`` is empty): the train step's loss
+takes no deep outputs (``train/step.py:154-161`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ class UNet3DFEAM(nn.Module):
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, use_cm: Sequence[bool] = (True, True, True),
                  deep_up: bool = False, base: int = 32, token_update: str = "post",
-                 conv_impl: str = "kernel", generator: torch.Generator | None = None):
+                 conv_impl: str = "kernel", gn_impl: str = "kernel",
+                 generator: torch.Generator | None = None):
         super().__init__()
         if token_update != "post":
             raise NotImplementedError(
@@ -48,7 +51,11 @@ class UNet3DFEAM(nn.Module):
         self.num_classes, self.use_cm, self.deep_up = nc, tuple(use_cm), deep_up
 
         def stage(cin, cout, blocks, stride):
-            return ResStage(cin, cout, blocks, stride, weight_std=ws, conv_impl=conv_impl)
+            return ResStage(cin, cout, blocks, stride, weight_std=ws, conv_impl=conv_impl,
+                            gn_impl=gn_impl)
+
+        def head(cin, cout, **kw):
+            return GNReLUConv(cin, cout, 16, gn_impl=gn_impl, **kw)
 
         self.conv1 = WSConv3d(1, b, 3, 1, 1, weight_std=ws)
         self.layer0 = stage(b, b, layers[0], 1)
@@ -56,26 +63,27 @@ class UNet3DFEAM(nn.Module):
         self.layer2 = stage(b * 2, b * 4, layers[2], 2)
         self.layer3 = stage(b * 4, b * 8, layers[3], 2)
         self.layer4 = stage(b * 8, b * 8, layers[4], 2)
-        self.fusionConv = GNReLUConv(b * 8, b * 8, 16, weight_std=ws, bias=False)
+        self.fusionConv = head(b * 8, b * 8, weight_std=ws, bias=False)
         self.x8_resb = stage(b * 8, b * 4, 1, 1)
         self.x4_resb = stage(b * 4, b * 2, 1, 1)
         self.x2_resb = stage(b * 2, b, 1, 1)
         self.x1_resb = stage(b, b, 1, 1)
-        self.deepout1 = GNReLUConv(b * 4, nc, 16)
-        self.deepout2 = GNReLUConv(b * 2, nc, 16)
-        self.deepout3 = GNReLUConv(b, nc, 16)
-        self.precls_conv = GNReLUConv(b, nc, 16)
+        self.deepout1 = head(b * 4, nc)
+        self.deepout2 = head(b * 2, nc)
+        self.deepout3 = head(b, nc)
+        self.precls_conv = head(b, nc)
         self.eam84 = EAM(b * 4, num_heads=4)
         self.eam42 = EAM(b * 2, num_heads=4)
         self.eam21 = EAM(b, num_heads=4)
         init_default_(self, generator or torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor, tokens: Dict[str, torch.Tensor] | None = None,
-                aux: bool = True):
+                aux: bool = True, deep: bool = True):
         """x: (B, D, H, W, 1) with D, H, W multiples of 16; tokens:
         {'t1': (C-1, 4*base), 't2': (C-1, 2*base), 't3': (C-1, base)}, needed
         only when aux. Returns (logits, attn_maps, deep_maps, features,
-        tokens), or the logits alone when not aux."""
+        tokens), or the logits alone when not aux; deep_maps is empty when
+        not deep."""
         full_spatial = tuple(x.shape[1:4])
         x = self.conv1(x)
         skip0 = x = self.layer0(x)
@@ -88,11 +96,12 @@ class UNet3DFEAM(nn.Module):
         scales = ((skip3, self.x8_resb, self.deepout1, self.eam84, "t1"),
                   (skip2, self.x4_resb, self.deepout2, self.eam42, "t2"),
                   (skip1, self.x2_resb, self.deepout3, self.eam21, "t3"))
-        for i, (skip, resb, deep, eam, key) in enumerate(scales):
+        for i, (skip, resb, head, eam, key) in enumerate(scales):
             x = resb(upsample_trilinear(x, 2) + skip)
             if not aux:
                 continue
-            deep_maps.append(deep(x))
+            if deep:
+                deep_maps.append(head(x))
             features.append(x.detach())
             if self.use_cm[i]:
                 x_t = x.reshape(x.shape[0], -1, x.shape[-1])

@@ -1,0 +1,211 @@
+"""The training step, port of ``multimodal_pl_tpu/train/step.py:87-279``
+(one reference iteration, train_amos_atlas_final.py:209-391).
+
+One call runs the segmenter forward (attention maps and features kept, the
+deep heads skipped), the refiner's gradient pass on the K gathered
+supervised rows, its gradient-free complement pass on the other rows, the
+segmentation loss, the refine loss, the generator term through a frozen
+discriminator, one backward for (params, rparams), SGD with the non-finite
+guard, the discriminator step on detached probabilities, and the token EMA.
+
+The models run through ``torch.func.functional_call`` with the state's
+parameters. Under autograd they take the training route of
+:mod:`multimodal_pl_tpu_torch.models.blocks` (``group_norm_relu`` and
+``conv3x3_train``); the complement pass runs under ``torch.no_grad`` and so
+takes the fused ``conv3x3_gn`` route, the counterpart of the JAX step's
+``pallas_inference_scope`` (step.py:132-150). Nothing in the step copies a
+value to the host.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import functional_call
+
+from multimodal_pl_tpu_torch.infer.metrics import organ_scores, refiner_organ_scores
+from multimodal_pl_tpu_torch.losses.compose import refine_loss, segmentation_loss
+from multimodal_pl_tpu_torch.losses.gan import smooth_cross_entropy
+from multimodal_pl_tpu_torch.models.tokens import agreement_mask, renew_tokens
+from multimodal_pl_tpu_torch.train.state import (
+    StepConfig,
+    TrainState,
+    all_finite,
+    fresh_adam_update,
+    select_tree,
+    torch_sgd_update,
+)
+
+
+def poly_lr(base_lr: float, epoch, num_epochs: int, power: float = 0.9) -> torch.Tensor:
+    """lr_poly (reference utils.py:53-60) as an f32 scalar tensor on the
+    device of ``epoch``."""
+    e = torch.as_tensor(epoch).to(torch.float32)
+    return base_lr * (1.0 - e / num_epochs) ** power
+
+
+def _weighted_ce_const(logits: torch.Tensor, weights: torch.Tensor, label: int) -> torch.Tensor:
+    """bce_loss over a row subset: mean CE over the rows of weight 1."""
+    ce = -torch.log_softmax(logits.float(), dim=-1)[:, label]
+    w = weights.float()
+    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _organs_first(probs: torch.Tensor) -> torch.Tensor:
+    """(D, H, W, C) class probabilities -> (C-1, D, H, W) organ planes."""
+    return probs[..., 1:].movedim(-1, 0)
+
+
+class TrainStep:
+    """``step(state, batch, lr, weight_feature) -> (state, metrics)``.
+
+    batch (device tensors): image (B, D, H, W, 1); label (B, D, H, W) ints;
+    catlas (C-1, D, H, W); sup_mask (C,) 0/1 with [0] = 0; label_t (C-1,)
+    modality flags. lr: segmenter/refiner learning rate; weight_feature: the
+    pseudo-label ramp weight. Metrics are device scalars."""
+
+    def __init__(self, model, refiner, disc, cfg: StepConfig):
+        self.model, self.refiner, self.disc, self.cfg = model, refiner, disc, cfg
+
+    def _disc(self, dparams, probs, catlas, attns):
+        """Discriminator logits over all organs of sample 0."""
+        cfg = self.cfg
+        din = (_organs_first(probs[0]).to(cfg.compute_dtype), catlas.to(cfg.compute_dtype))
+        if cfg.deep_up:
+            return functional_call(self.disc, dparams, (din,))
+        amaps = [torch.softmax(a.float(), -1)[0].movedim(-1, 0)[..., None] for a in attns]
+        return functional_call(self.disc, dparams, (din, amaps))
+
+    def losses(self, params, rparams, state: TrainState, batch, weight_feature):
+        """(total loss, aux) of the segmenter and refiner, differentiable in
+        params and rparams."""
+        cfg = self.cfg
+        nfg = cfg.num_classes - 1
+        images = batch["image"].to(cfg.compute_dtype)
+        labels = batch["label"].long()
+        sup_mask, label_t = batch["sup_mask"], batch["label_t"]
+        catlas_c = batch["catlas"].to(cfg.compute_dtype)
+
+        # cmask: zero out the unsupervised organs (train:252-255)
+        cmask = torch.where(sup_mask[labels] > 0, labels, torch.zeros_like(labels))
+        logits, attns, _, feats, _ = functional_call(
+            self.model, params, (images, state.tokens), {"deep": False})
+        logits32 = logits.float()
+
+        # refiner: a gradient pass over the supervised labeled-modality organs
+        # (tlist, gathered to a static K rows) and a gradient-free pass over
+        # the other rows for the pseudo-labels (train:277-291)
+        probs0 = torch.softmax(logits32[0].detach(), dim=-1)
+        organ_probs = _organs_first(probs0).to(cfg.compute_dtype)
+        tlist_w = label_t * sup_mask[1:]
+        k = min(cfg.refine_grad_organs, nfg)
+        order = torch.argsort(-tlist_w, stable=True)  # tlist rows first, ties as JAX
+        sup_idx, rest_idx = order[:k], order[k:]
+        rlogits_sup = functional_call(
+            self.refiner, rparams, ((organ_probs[sup_idx], catlas_c[sup_idx]),)).float()
+        r_loss = refine_loss(rlogits_sup, cmask, tlist_w[sup_idx], aug_mask=cfg.augmask,
+                             organ_ids=sup_idx + 1)
+        if k < nfg:
+            with torch.no_grad():
+                rest = functional_call(
+                    self.refiner, {n: p.detach() for n, p in rparams.items()},
+                    ((organ_probs[rest_idx], catlas_c[rest_idx]),)).float()
+            rlogits = rest.new_zeros((nfg, *rest.shape[1:]))
+            rlogits[sup_idx] = rlogits_sup.detach()
+            rlogits[rest_idx] = rest
+        else:
+            rlogits = rlogits_sup.detach()[torch.argsort(sup_idx)]
+
+        # deep_outs=(): the reference training script passes deep_out=[] (train:305)
+        seg = segmentation_loss(logits32, cmask, sup_mask, (), attns, refiner_logits=rlogits,
+                                label_d=sup_mask[1:], weight_feature=weight_feature)
+
+        # generator term: the frozen discriminator passes gradient to the
+        # logits and takes none itself (train:323-347)
+        dfrozen = {n: p.detach() for n, p in state.dparams.items()}
+        d_out = self._disc(dfrozen, torch.softmax(logits32, dim=-1), catlas_c, attns)
+        loss_d = _weighted_ce_const(d_out, 1.0 - label_t, 1)
+
+        total = seg + r_loss + loss_d * cfg.weight_gan
+        aux = {"logits": logits32.detach(), "attns": [a.detach() for a in attns],
+               "feats": feats, "cmask": cmask, "rlogits": rlogits, "seg_loss": seg.detach(),
+               "refine_loss": r_loss.detach(), "gan_g_loss": loss_d.detach()}
+        return total, aux
+
+    def grads(self, state: TrainState, batch, weight_feature):
+        """(total, (grads of params, grads of rparams), aux); parameters that
+        do not reach the loss get zero gradients, as in JAX."""
+        cfg = self.cfg
+        params = {n: p.detach().requires_grad_(True) for n, p in state.params.items()}
+        rparams = {n: p.detach().requires_grad_(cfg.train_refiner)
+                   for n, p in state.rparams.items()}
+        total, aux = self.losses(params, rparams, state, batch, weight_feature)
+        leaves = list(params.values()) + (list(rparams.values()) if cfg.train_refiner else [])
+        got = torch.autograd.grad(total, leaves, allow_unused=True)
+        got = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)]
+        gp = dict(zip(params, got[:len(params)]))
+        gr = (dict(zip(rparams, got[len(params):])) if cfg.train_refiner
+              else {n: torch.zeros_like(p) for n, p in rparams.items()})
+        return total.detach(), (gp, gr), aux
+
+    def disc_grads(self, state: TrainState, aux, batch):
+        """(loss, grads) of the discriminator CE on detached inputs over all
+        organs (train:349-368)."""
+        dparams = {n: p.detach().requires_grad_(True) for n, p in state.dparams.items()}
+        d_out = self._disc(dparams, torch.softmax(aux["logits"], dim=-1),
+                           batch["catlas"], aux["attns"])
+        d_loss = smooth_cross_entropy(d_out, batch["label_t"].long())
+        g = torch.autograd.grad(d_loss, list(dparams.values()), allow_unused=True)
+        return d_loss.detach(), {n: torch.zeros_like(p) if gi is None else gi
+                                 for (n, p), gi in zip(dparams.items(), g)}
+
+    def __call__(self, state: TrainState, batch, lr, weight_feature):
+        cfg = self.cfg
+        nfg = cfg.num_classes - 1
+        total, (gp, gr), aux = self.grads(state, batch, weight_feature)
+
+        # non-finite-gradient guard: a bad bf16 step is skipped, not applied
+        g_ok = all_finite(gp) & all_finite(gr)
+        new_p, new_bp = torch_sgd_update(state.params, gp, state.momentum[0], lr,
+                                         cfg.momentum, cfg.weight_decay)
+        new_r, new_br = torch_sgd_update(state.rparams, gr, state.momentum[1], lr,
+                                         cfg.momentum, cfg.weight_decay)
+        params = select_tree(g_ok, new_p, state.params)
+        rparams = select_tree(g_ok, new_r, state.rparams)
+        momentum = (select_tree(g_ok, new_bp, state.momentum[0]),
+                    select_tree(g_ok, new_br, state.momentum[1]))
+
+        disc_lr = poly_lr(cfg.disc_lr, state.epoch, cfg.num_epochs)  # train:325
+        d_loss, dgrads = self.disc_grads(state, aux, batch)
+        d_ok = all_finite(dgrads)
+        dparams = select_tree(d_ok, fresh_adam_update(state.dparams, dgrads, disc_lr),
+                              state.dparams)
+
+        # class-token EMA (train:382-391), guarded like the updates
+        fmask = agreement_mask(aux["cmask"], aux["logits"].argmax(dim=-1), batch["sup_mask"])
+        new_tokens = renew_tokens(state.tokens, aux["feats"], fmask, cfg.token_alpha)
+        tokens = select_tree(all_finite(new_tokens), new_tokens, state.tokens)
+
+        new_state = state.replace(params=params, rparams=rparams, dparams=dparams,
+                                  momentum=momentum, tokens=tokens, step=state.step + 1)
+        labels = batch["label"].long()
+        dice = organ_scores(aux["logits"], labels, nfg)[0]
+        rdice = refiner_organ_scores(aux["rlogits"], labels[:1], nfg)[0]
+        supw = batch["sup_mask"][1:].float()
+        metrics = {
+            "loss": total,
+            "seg_loss": aux["seg_loss"],
+            "refine_loss": aux["refine_loss"],
+            "gan_g_loss": aux["gan_g_loss"],
+            "disc_loss": d_loss,
+            "train_dice_mean": dice.mean(),
+            "train_dice_sup": (dice * supw).sum() / torch.clamp(supw.sum(), min=1.0),
+            "refiner_dice_mean": rdice.mean(),
+            "grads_finite": g_ok.float(),
+            "disc_grads_finite": d_ok.float(),
+            "lr": torch.as_tensor(lr, dtype=torch.float32),
+        }
+        return new_state, metrics
+
+
+def make_train_step(model, refiner, disc, cfg: StepConfig) -> TrainStep:
+    return TrainStep(model, refiner, disc, cfg)

@@ -72,7 +72,7 @@ def test_evaluate_cli_on_synthetic_cases(tmp_path, atlas_rule):
     csv_path = evaluate.main([
         "--data_dir", img_dir, "--reload_path", ckpt, "--save_path", out_dir,
         "--input_size", "16,32,32", "--atlas_path", atlas_path, "--window_batch", "4",
-        "--bf16", "false", "--use_atlas_threshold", str(atlas_rule)])
+        "--bf16", "false", "--use_atlas_threshold", str(atlas_rule), "--device", "cpu"])
     with open(csv_path) as f:
         rows = list(csv.reader(f))
     assert rows[0] == ["case"] + [f"organ{i}" for i in range(13)]

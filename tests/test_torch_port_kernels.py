@@ -99,7 +99,7 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
     a, b = group_norm_fold(x, torch.ones(16), torch.zeros(16), 16)
     conv3x3.reset_launches()
     assert torch.equal(conv3x3_gn(x, w, a, b, res=x), conv3x3_gn_reference(x, w, a, b, res=x))
-    assert conv3x3.launch_totals() == {conv3x3.FUSED: 0, conv3x3.PROLOGUE_OFF: 0}
+    assert conv3x3.launch_totals() == dict.fromkeys(conv3x3.SPECS, 0)
     with pytest.raises(ValueError):
         conv3x3_gn(x, w, a, None)
 
