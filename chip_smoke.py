@@ -11,15 +11,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    together (timed, ptxas report kept);
 2. the conv3x3_gn kernel vs its plain PyTorch version (f32, TF32 off) on the
    same bf16 inputs, at every shape one 4 x 64 x 192 x 192 tile batch of the
-   flagship UNet3DFEAM gives it: max|k - p| <= 1e-2 * max|p|; both times;
+   flagship UNet3DFEAM gives it: max|k - p| <= 1e-2 * max|p|; kernel, plain
+   and library (cuDNN bf16 conv) times and the bound; then the GroupNorm
+   fold statistics kernel vs the plain fold at every fused conv's input:
+   rows a, b within rel 1e-5;
 3. the whole model on one bf16 tile batch, conv_impl='kernel' vs 'plain'
-   with the same weights: relative L2 error of the logits <= 3e-2, and 22
-   kernel launches (18 fused, 4 prologue-off), every launched shape covered
-   by phase 2;
+   with the same weights: relative L2 error of the logits <= 3e-2, 22 conv
+   calls (18 fused, 4 prologue-off) and 18 fold calls, every launched shape
+   covered by phase 2;
 4. the serving path: SlidingWindowPredictor(output='argmax', window_batch=4,
    bf16) over seeded 128 x 256 x 256 volumes (12 windows): a uint8 label map
-   of labels < 14, 66 launches per volume, agreement with the plain model's
-   label map; then predict_iter over 5 volumes (s/vol);
+   of labels < 14, 66 conv and 54 fold calls per volume, agreement with the
+   plain model's label map; then predict_iter over 5 volumes (s/vol);
 5. the evaluation entry point: mpl-evaluate-torch's main() on 2 synthetic
    cases with random weights written as .npz; its CSV;
 6. the training kernels vs their plain versions at every shape one
@@ -31,12 +34,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
 7. the training path: the train step at the full geometry from one seeded
    state and batch, kernel vs plain (total loss, segmenter gradients), then
    3 kernel steps: finite losses, moving parameters, finite tokens, the exact
-   launches per step of every kernel, ms/step, peak memory;
+   calls per step of every kernel (the fold's 10 included), ms/step, peak
+   memory;
 8. the training entry point: mpl-train-torch's main() on synthetic cases at
    64 x 192 x 192 for 2 epochs with validation after each (through the
    serving kernel), a checkpoint, and a resumed epoch.
 
-Prints the kernels' JSON line, the card line, and as the last line
+Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
+blocks launches a second, reduction kernel; a fold call launches two).
+Kernel, plain and library times are device times per call (CUDA graph
+replays); bounds are max(FLOP / 989e12, bytes / 3.35e12) per call (H100 SXM
+dense bf16 and HBM3 peaks), with every input read once and every output
+written once. Prints the kernels' JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}. Weights are random from fixed seeds. Details
 go to chiprun_out/chip_smoke.json.
 """
@@ -64,6 +73,10 @@ BK3 = "multimodal_pl_tpu/ops/pallas/bk3_conv.py:163"
 K2 = "multimodal_pl_tpu/ops/pallas/k2_conv.py:338"
 K2_GN = "multimodal_pl_tpu/ops/pallas/k2_conv.py:277"
 GN_RELU = "multimodal_pl_tpu/ops/pallas/fused_gn_relu.py:54"
+GN_FOLD = "multimodal_pl_tpu/ops/bd.py:439 bd_gn_fold (XLA)"
+PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+FOLD_REL = 1e-5       # fold rows kernel vs plain: f32 summation order only
 SOURCE = "multimodal_pl_tpu_torch/csrc/conv3x3_gn.cu"
 GN_SOURCE = "multimodal_pl_tpu_torch/csrc/gn_relu.cu"
 PATCH = (64, 192, 192)      # the training patch (StepConfig / cli/train.py defaults)
@@ -100,17 +113,45 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time of one call: op_ms and byte_ms at the card's peaks,
+    bound_ms the larger."""
+    op_ms, byte_ms = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"op_ms": op_ms, "byte_ms": byte_ms, "bound_ms": max(op_ms, byte_ms)}
+
+
+def conv_bound(b, d, h, w, cin, cout, prologue, res) -> dict:
+    """3x3x3 conv: 2*27*Cin*Cout FLOP per output voxel; x, w, out (+ res, +
+    the a, b rows) moved once."""
+    vox = b * d * h * w
+    nbytes = 2 * vox * (cin + cout) + 2 * 27 * cin * cout
+    nbytes += 2 * vox * cout if res else 0
+    nbytes += 2 * 4 * b * cin if prologue else 0
+    return bound(2 * 27 * cin * cout * vox, nbytes)
+
+
+def sum_bound(rows) -> dict:
+    """Bound of a sequence of calls, (count, row with op_ms/byte_ms): the sum
+    of each call's bound, bound by what dominates the sum."""
+    rows = list(rows)
+    op = sum(n * r["op_ms"] for n, r in rows)
+    by = sum(n * r["byte_ms"] for n, r in rows)
+    return {"bound_ms": sum(n * max(r["op_ms"], r["byte_ms"]) for n, r in rows),
+            "bound_by": "operations" if op >= by else "bytes"}
+
+
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls (CUDA events), after warm-up."""
-    for _ in range(2):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Device time of one fn() call (CUDA-graph replays)."""
+    from multimodal_pl_tpu_torch.tools.timing import graph_ms
+
+    return graph_ms(fn, reps)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Time of one fn() call as the host issues it (launches included)."""
+    from multimodal_pl_tpu_torch.tools.timing import event_ms
+
+    return event_ms(fn, reps)
 
 
 def card_line() -> str:
@@ -122,20 +163,16 @@ def card_line() -> str:
 def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
     """Phases 2 and 6: conv3x3_gn kernel vs plain at each of ``shapes``,
     (Cin, Cout, (D, H, W), prologue, residual), at batch ``batch`` with the
-    GroupNorm fold of ``groups`` groups."""
+    GroupNorm fold of ``groups`` groups. The library time is one cuDNN bf16
+    conv on the channels-last input, already normalized where the kernel
+    has a prologue (so a lower bound on the library's time for the fused
+    function, which also normalizes and adds the residual)."""
     import torch.nn.functional as F
 
     from multimodal_pl_tpu_torch.ops.conv import standardize_kernel
     from multimodal_pl_tpu_torch.ops.conv3x3 import (
         FUSED, PROLOGUE_OFF as OFF, conv3x3_gn, conv3x3_gn_reference)
     from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
-
-    def eager_bf16(x, w, a, b, res):
-        # the same op as unfused bf16 PyTorch ops (cuDNN conv), for scale
-        t = x if a is None else torch.relu(x.float() * a[:, None, None, None]
-                                           + b[:, None, None, None]).to(x.dtype)
-        y = F.conv3d(t.permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
-        return y if res is None else y + res
 
     g = torch.Generator().manual_seed(1)
     table = {}
@@ -144,9 +181,12 @@ def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
         w = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(
             dev, torch.bfloat16)
         a = b = res = None
+        t = x  # the conv's input as the library takes it
         if prologue:
             a, b = group_norm_fold(x, (1 + 0.1 * torch.randn(cin, generator=g)).to(dev),
                                    (0.1 * torch.randn(cin, generator=g)).to(dev), groups)
+            t = torch.relu(x.float() * a[:, None, None, None] + b[:, None, None, None]).to(
+                x.dtype)
         if with_res:
             res = torch.randn((batch, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
         k = conv3x3_gn(x, w, a, b, res)
@@ -155,25 +195,78 @@ def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
         err = (k.float() - p.float()).abs().max().item()
         scale = p.float().abs().max().item()
         reps = 5 if d * h * w_ * max(cin, cout) > 2 ** 26 else 20
+        t_cl = t.permute(0, 4, 1, 2, 3)  # NDHWC memory: channels_last_3d
         row = {
             "spec": FUSED if prologue else OFF, "b": batch, "cin": cin, "cout": cout,
             "dhw": [d, h, w_],
             "res": with_res, "max_abs_err": err, "max_abs_plain": scale,
             "ms": time_ms(lambda: conv3x3_gn(x, w, a, b, res), reps),
             "plain_ms": time_ms(lambda: conv3x3_gn_reference(x, w, a, b, res), reps),
-            "eager_bf16_ms": time_ms(lambda: eager_bf16(x, w, a, b, res), reps),
+            "library_ms": time_ms(lambda: F.conv3d(t_cl, w, padding=1), reps),
+            **conv_bound(batch, d, h, w_, cin, cout, prologue, with_res),
         }
         row["tflops"] = 2 * 27 * cin * cout * batch * d * h * w_ / row["ms"] / 1e9
         print(f"  {row['spec']:12s} B={batch} {cin:3d}->{cout:3d} @{d}x{h}x{w_} res={with_res!s:5s} "
               f"max|k-p|={err:.3g} (max|p|={scale:.3g})  kernel {row['ms']:.3f} ms "
               f"({row['tflops']:.1f} TFLOP/s)  plain f32 {row['plain_ms']:.3f} ms  "
-              f"eager bf16 {row['eager_bf16_ms']:.3f} ms", flush=True)
+              f"library {row['library_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms",
+              flush=True)
         check(err <= 1e-2 * scale, f"kernel disagrees with plain at {row}")
         table[(row["spec"], cin, cout, batch, d, h, w_, with_res)] = row
         results["kernels"].append(row)
-        del x, w, a, b, res, k, p
+        del x, w, a, b, res, k, p, t, t_cl
     torch.cuda.empty_cache()
     return table
+
+
+def phase_fold(dev, results, keys):
+    """Phases 2 and 6: the GroupNorm fold statistics kernel vs the plain
+    two-pass fold at each (C, groups, B, D, H, W) of ``keys``: both rows
+    within FOLD_REL of the plain rows' largest magnitude. No single library
+    call gives GroupNorm statistics alone, so there is no library time."""
+    from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
+
+    g = torch.Generator().manual_seed(6)
+    table = {}
+    for c, groups, batch, d, h, w in sorted(keys):
+        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        ka, kb = group_norm_fold(x, sc, bi, groups, impl="kernel")
+        torch.cuda.synchronize()
+        pa, pb = group_norm_fold(x, sc, bi, groups)
+        rel = max(((k - q).abs().max() / q.abs().max()).item() for k, q in ((ka, pa), (kb, pb)))
+        err = max((k - q).abs().max().item() for k, q in ((ka, pa), (kb, pb)))
+        reps = 5 if x.numel() > 2 ** 26 else 20
+        row = {"c": c, "groups": groups, "b": batch, "dhw": [d, h, w], "rel": rel,
+               "max_abs_err": err,
+               "ms": time_ms(lambda: group_norm_fold(x, sc, bi, groups, impl="kernel"), reps),
+               "plain_ms": time_ms(lambda: group_norm_fold(x, sc, bi, groups), reps),
+               "library_ms": None,
+               **bound(0.0, 2 * x.numel() + 4 * (2 * batch * c + 2 * c))}
+        print(f"  fold B={batch} C={c:3d} G={groups:2d} @{d}x{h}x{w} rel {rel:.3g}  kernel "
+              f"{row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms",
+              flush=True)
+        check(rel <= FOLD_REL, f"fold kernel disagrees with plain at {row}")
+        table[(c, groups, batch, d, h, w)] = row
+        results["fold"].append(row)
+        del x, ka, kb, pa, pb
+    torch.cuda.empty_cache()
+    return table
+
+
+def fold_keys(conv_keys, groups):
+    """The fold calls of fused conv3x3_gn calls: one per call, on its input
+    (C = its Cin)."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
+    out = Counter()
+    for key, n in conv_keys.items():
+        if key[0] == conv3x3.FUSED:
+            out[(key[1], groups, *key[3:7])] += n
+    return out
 
 
 def _half(dhw):
@@ -254,8 +347,15 @@ def training_shapes(cfg):
 
 
 def phase_gn(dev, results, gn_keys):
-    """Phase 6: gn_relu kernel vs plain at every training GroupNorm shape."""
+    """Phase 6: gn_relu kernel vs plain at every training GroupNorm shape;
+    the library time is F.group_norm then an in-place ReLU on the bf16
+    channels-last input."""
+    import torch.nn.functional as F
+
     from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
+
+    def library(x_cl, groups, sc, bi):
+        return F.relu(F.group_norm(x_cl, groups, sc, bi, 1e-5), inplace=True)
 
     g = torch.Generator().manual_seed(3)
     table = {}
@@ -263,6 +363,8 @@ def phase_gn(dev, results, gn_keys):
         x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
         sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
         bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        x_cl = x.permute(0, 4, 1, 2, 3)
+        sc16, bi16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
         with torch.no_grad():
             k = group_norm_relu(x, sc, bi, groups)
             torch.cuda.synchronize()
@@ -273,11 +375,14 @@ def phase_gn(dev, results, gn_keys):
             row = {"c": c, "groups": groups, "b": batch, "dhw": [d, h, w], "max_abs_err": err,
                    "max_abs_plain": scale,
                    "ms": time_ms(lambda: group_norm_relu(x, sc, bi, groups), reps),
-                   "plain_ms": time_ms(lambda: group_norm_relu_reference(x, sc, bi, groups), reps)}
+                   "plain_ms": time_ms(lambda: group_norm_relu_reference(x, sc, bi, groups), reps),
+                   "library_ms": time_ms(lambda: library(x_cl, groups, sc16, bi16), reps),
+                   **bound(0.0, 4 * x.numel() + 2 * 4 * c)}
         row["gb_s"] = 3 * x.numel() * 2 / row["ms"] / 1e6  # reads x twice, writes once
         print(f"  gn_relu B={batch} C={c:3d} G={groups:2d} @{d}x{h}x{w} max|k-p|={err:.3g} "
               f"(max|p|={scale:.3g})  kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s)  "
-              f"plain {row['plain_ms']:.3f} ms", flush=True)
+              f"plain {row['plain_ms']:.3f} ms  library {row['library_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.3f} ms", flush=True)
         check(err <= 1e-2 * scale, f"gn_relu kernel disagrees with plain at {row}")
         table[(c, groups, batch, d, h, w)] = row
         results["gn_relu"].append(row)
@@ -288,7 +393,10 @@ def phase_gn(dev, results, gn_keys):
 def phase_train_conv(dev, results, conv_keys):
     """Phase 6: conv3x3_train forward and dx (the kernel) and dw (the
     library's convolution backward) vs f32 autograd of the plain version at
-    every training stride-1 conv shape."""
+    every training stride-1 conv shape. The library time of forward and dx
+    is one cuDNN bf16 conv each (dx: on the flipped, transposed taps)."""
+    import torch.nn.functional as F
+
     from multimodal_pl_tpu_torch.ops import conv3x3
     from multimodal_pl_tpu_torch.ops.conv import standardize_kernel
     from multimodal_pl_tpu_torch.ops.conv3x3 import (
@@ -316,8 +424,13 @@ def phase_train_conv(dev, results, conv_keys):
                "fwd_err": (y.float() - yf).abs().max().item(), "fwd_max": yf.abs().max().item(),
                "dx_err": (dx.float() - dxf).abs().max().item(), "dx_max": dxf.abs().max().item(),
                "dw_rel": ((dw.float() - dwf).norm() / dwf.norm()).item()}
+        cb = conv_bound(batch, d, h, w_, cin, cout, False, False)
+        row.update({f"{k}_{f}": v for k in ("fwd", "dx") for f, v in cb.items()})
+        x_cl, gy_cl = x.permute(0, 4, 1, 2, 3), gy.permute(0, 4, 1, 2, 3)
         with torch.no_grad():
             row.update(
+                fwd_library_ms=time_ms(lambda: F.conv3d(x_cl, w, padding=1), reps),
+                dx_library_ms=time_ms(lambda: F.conv3d(gy_cl, wt, padding=1), reps),
                 fwd_ms=time_ms(lambda: conv3x3_train(x, w), reps),
                 fwd_plain_ms=time_ms(lambda: conv3x3_gn_reference(x, w), reps),
                 dx_ms=time_ms(lambda: conv3x3_gn(gy, wt), reps),
@@ -329,9 +442,11 @@ def phase_train_conv(dev, results, conv_keys):
         row["dw_tflops"] = flop / row["dw_ms"] / 1e9
         print(f"  conv3x3_train B={batch} {cin:3d}->{cout:3d} @{d}x{h}x{w_}: fwd "
               f"{row['fwd_err']:.3g}/{row['fwd_max']:.3g} {row['fwd_ms']:.3f} ms "
-              f"({row['fwd_tflops']:.1f} TFLOP/s, plain {row['fwd_plain_ms']:.3f}); dx "
+              f"({row['fwd_tflops']:.1f} TFLOP/s, plain {row['fwd_plain_ms']:.3f}, library "
+              f"{row['fwd_library_ms']:.3f}); dx "
               f"{row['dx_err']:.3g}/{row['dx_max']:.3g} {row['dx_ms']:.3f} ms "
-              f"({row['dx_tflops']:.1f}, plain {row['dx_plain_ms']:.3f}); dw rel "
+              f"({row['dx_tflops']:.1f}, plain {row['dx_plain_ms']:.3f}, library "
+              f"{row['dx_library_ms']:.3f}); bound {row['fwd_bound_ms']:.3f}; dw rel "
               f"{row['dw_rel']:.2e} library {row['dw_ms']:.3f} ms ({row['dw_tflops']:.1f}, "
               f"f32 {row['dw_plain_ms']:.3f})", flush=True)
         check(row["fwd_err"] <= 1e-2 * row["fwd_max"], f"conv3x3_train forward disagrees: {row}")
@@ -339,7 +454,7 @@ def phase_train_conv(dev, results, conv_keys):
         check(row["dw_rel"] <= 1e-2, f"conv3x3_train dw disagrees: {row}")
         table[(cin, cout, batch, d, h, w_)] = row
         results["conv3x3_train"].append(row)
-        del x, w, gy, xr, wr, y, dx, dw, xf, wf, yf, dxf, dwf, wt
+        del x, w, gy, xr, wr, y, dx, dw, xf, wf, yf, dxf, dwf, wt, x_cl, gy_cl
     torch.cuda.empty_cache()
     return table
 
@@ -361,13 +476,13 @@ def train_batch(dev, cfg):
     return to_device(host, cfg, dev)
 
 
-def phase_step(dev, results, conv_expected, gn_expected):
+def phase_step(dev, results, conv_expected, gn_expected, fold_expected):
     """Phase 7: the train step at the full geometry. Returns the kernel
-    launches of the 3 timed steps (conv3x3 keys, gn_relu keys)."""
+    calls of the 3 timed steps (conv3x3 keys, gn_relu keys, fold keys)."""
     import dataclasses
     from collections import Counter
 
-    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm
     from multimodal_pl_tpu_torch.train.state import StepConfig, build_models, create_train_state
     from multimodal_pl_tpu_torch.train.step import make_train_step
 
@@ -428,11 +543,12 @@ def phase_step(dev, results, conv_expected, gn_expected):
     step = make(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    conv_total, gn_total, step_ms, metrics = Counter(), Counter(), [], []
+    conv_total, gn_total, fold_total, step_ms, metrics = Counter(), Counter(), Counter(), [], []
     first = state
     for _ in range(3):
         conv3x3.reset_launches()
         gn_relu.reset_launches()
+        norm.fold_launches.clear()
         t0 = time.perf_counter()
         state, m = step(state, batch, lr, wf)
         torch.cuda.synchronize()
@@ -441,8 +557,11 @@ def phase_step(dev, results, conv_expected, gn_expected):
               f"conv3x3 launches per step {dict(conv3x3.launches)} != {dict(conv_expected)}")
         check(Counter(gn_relu.launches) == gn_expected,
               f"gn_relu launches per step {dict(gn_relu.launches)} != {dict(gn_expected)}")
+        check(Counter(norm.fold_launches) == fold_expected,
+              f"fold calls per step {dict(norm.fold_launches)} != {dict(fold_expected)}")
         conv_total.update(conv3x3.launches)
         gn_total.update(gn_relu.launches)
+        fold_total.update(norm.fold_launches)
         metrics.append({k: float(v) for k, v in m.items()})
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = dict.fromkeys(conv3x3.SPECS, 0)
@@ -470,14 +589,15 @@ def phase_step(dev, results, conv_expected, gn_expected):
                            steady_median_ms=float(np.median(steady)), peak_gib=peak_gib,
                            metrics=metrics,
                            launches_per_step=per_step,
-                           gn_relu_launches_per_step=sum(gn_expected.values()))
+                           gn_relu_launches_per_step=sum(gn_expected.values()),
+                           fold_launches_per_step=sum(fold_expected.values()))
     print(f"[7] 3 kernel steps at B=1 x {PATCH}, bf16: {[round(t, 1) for t in step_ms]} ms/step "
           f"(then 5 more: median {np.median(steady):.1f} ms), peak {peak_gib:.2f} GiB; losses "
-          f"{[round(m['loss'], 5) for m in metrics]}; launches per step {per_step} + gn_relu "
-          f"{sum(gn_expected.values())}", flush=True)
+          f"{[round(m['loss'], 5) for m in metrics]}; calls per step {per_step} + gn_relu "
+          f"{sum(gn_expected.values())} + fold {sum(fold_expected.values())}", flush=True)
     del state, first, step, batch
     torch.cuda.empty_cache()
-    return conv_total, gn_total
+    return conv_total, gn_total, fold_total
 
 
 def phase_train_cli(tmp):
@@ -534,7 +654,9 @@ def main() -> int:
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
     from multimodal_pl_tpu_torch.models import UNet3DFEAM
-    from multimodal_pl_tpu_torch.ops import _build, conv3x3, gn_relu
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import _build, conv3x3, gn_relu, norm
     from multimodal_pl_tpu_torch.train.state import StepConfig
     from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
 
@@ -544,7 +666,7 @@ def main() -> int:
     card = card_line()
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
-               "gn_relu": [], "conv3x3_train": [], "phase_s": {}}
+               "fold": [], "gn_relu": [], "conv3x3_train": [], "phase_s": {}}
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -573,6 +695,8 @@ def main() -> int:
     # ---- phase 2: kernel vs plain at every main-path shape ------------------
     print("[2] conv3x3_gn kernel vs plain (bf16 inputs; plain in f32, TF32 off)", flush=True)
     table = phase_kernels(dev, results)
+    print("[2] GroupNorm fold statistics kernel vs plain at every fused conv's input", flush=True)
+    fold_table = phase_fold(dev, results, fold_keys(Counter(table.keys()), 16))
     phase_done("serving kernels")
 
     # ---- phase 3: whole model, kernel vs plain -----------------------------
@@ -584,14 +708,16 @@ def main() -> int:
         dev, torch.bfloat16)
     with torch.inference_mode():
         conv3x3.reset_launches()
+        norm.fold_launches.clear()
         lk = model(x, aux=False)
         torch.cuda.synchronize()
         per_forward = dict(conv3x3.launches)
+        per_forward_fold = dict(norm.fold_launches)
         totals = conv3x3.launch_totals()
         lp = plain(x, aux=False)
         rel = ((lk.float() - lp.float()).norm() / lp.float().norm()).item()
-        fwd_ms = time_ms(lambda: model(x, aux=False), 3)
-        plain_fwd_ms = time_ms(lambda: plain(x, aux=False), 3)
+        fwd_ms = wall_ms(lambda: model(x, aux=False), 3)
+        plain_fwd_ms = wall_ms(lambda: plain(x, aux=False), 3)
     check(lk.shape == (WINDOW_BATCH, *TILE, NC) and bool(torch.isfinite(lk).all()),
           f"logits {tuple(lk.shape)} not finite / wrong shape")
     results.update(model_rel_l2=rel, model_launches=totals, forward_ms=fwd_ms,
@@ -602,7 +728,8 @@ def main() -> int:
     check(rel <= 3e-2, f"whole-model relative L2 error {rel} > 3e-2")
     check(totals == {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
                      conv3x3.TRAIN_DX: 0}, f"launches {totals} != 18 + 4")
-    missing = sorted(set(per_forward) - set(table))
+    check(sum(per_forward_fold.values()) == 18, f"fold calls {per_forward_fold} != 18")
+    missing = sorted(set(per_forward) - set(table)) + sorted(set(per_forward_fold) - set(fold_table))
     check(not missing, f"shapes launched by the model but not checked in phase 2: {missing}")
     del lk, lp, x
     torch.cuda.empty_cache()
@@ -621,11 +748,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     conv3x3.reset_launches()
+    norm.fold_launches.clear()
     t0 = time.perf_counter()
     labels = pred(vol)
     torch.cuda.synchronize()
     one_shot_s = time.perf_counter() - t0
     main_launches = conv3x3.launch_totals()
+    main_folds = sum(norm.fold_launches.values())
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(labels.dtype == torch.uint8 and tuple(labels.shape) == VOL,
           f"label map {labels.dtype} {tuple(labels.shape)}")
@@ -633,6 +762,7 @@ def main() -> int:
     check(main_launches == {conv3x3.FUSED: 54, conv3x3.PROLOGUE_OFF: 12, conv3x3.TRAIN_FWD: 0,
                             conv3x3.TRAIN_DX: 0},
           f"main-path launches {main_launches} != 54 + 12 (66)")
+    check(main_folds == 54, f"main-path fold calls {main_folds} != 54")
     agree = (predictor(plain)(vol) == labels).float().mean().item()
     check(agree >= 0.95, f"label agreement with the plain model {agree} < 0.95")
     t0 = time.perf_counter()
@@ -644,11 +774,12 @@ def main() -> int:
     stream_agree = min((s == pred(v).cpu()).float().mean().item()
                        for s, v in zip(streamed, vols))
     check(stream_agree >= 0.999, f"predict_iter vs one-shot agreement {stream_agree}")
-    results.update(main_path_launches=main_launches, one_shot_s_per_vol=one_shot_s,
+    results.update(main_path_launches=main_launches, main_path_folds=main_folds,
+                   one_shot_s_per_vol=one_shot_s,
                    stream_s_per_vol=stream_s, label_agreement=agree,
                    stream_vs_one_shot=stream_agree, peak_gib=peak_gib)
     print(f"[4] {VOL} volume, {TILE} tiles, window batch {WINDOW_BATCH}, bf16, argmax: "
-          f"launches {main_launches}; label agreement with plain {agree:.5f}; "
+          f"launches {main_launches} + fold {main_folds}; label agreement with plain {agree:.5f}; "
           f"one-shot {one_shot_s:.3f} s/vol; predict_iter {stream_s:.3f} s/vol "
           f"({1 / stream_s:.3f} vol/s, agrees with one-shot {stream_agree:.6f}); "
           f"peak {peak_gib:.2f} GiB", flush=True)
@@ -683,12 +814,15 @@ def main() -> int:
         nograd_table.update(phase_kernels(
             dev, results, [(k[1], k[2], k[4:7], k[0] == conv3x3.FUSED, k[7])
                            for k in rest if k[3] == batch], batch=batch, groups=4))
+    fold_expected = fold_keys(conv_expected, 4)
+    phase_fold(dev, results, fold_expected)
     phase_done("training kernels")
 
     # ---- phase 7: the training path ------------------------------------------
     # every step launches exactly the derived shapes (checked per step), and
     # phase 6 held the kernels against their plain versions at each of them
-    conv_run, gn_run = phase_step(dev, results, conv_expected, gn_expected)
+    conv_run, gn_run, fold_run = phase_step(dev, results, conv_expected, gn_expected,
+                                            fold_expected)
     phase_done("train step")
 
     # ---- phase 8: the training entry point -----------------------------------
@@ -696,59 +830,56 @@ def main() -> int:
         results["train_cli"] = phase_train_cli(tmp)
     phase_done("train entry point")
 
-    kernels = []
-    serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
-    for spec, name, replaces in ((conv3x3.FUSED, "conv3x3_gn fused GN-ReLU prologue", BDX),
-                                 (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3)):
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": main_launches[spec],
-            "max_abs_err": max(r["max_abs_err"] for r in serving.values() if r["spec"] == spec),
-            # device time of this kernel's launches in one tile-batch forward
-            "ms": sum(n * serving[k]["ms"] for k, n in per_forward.items() if k[0] == spec),
-            "plain_ms": sum(n * serving[k]["plain_ms"] for k, n in per_forward.items()
-                            if k[0] == spec),
-        })
+    def entry(name, source, replaces, launches, rows):
+        """One kernels-line entry from (calls, per-shape row) pairs."""
+        libs = [n * r["library_ms"] for n, r in rows if r["library_ms"] is not None]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(r["max_abs_err"] for _, r in rows),
+                "ms": sum(n * r["ms"] for n, r in rows),
+                "plain_ms": sum(n * r["plain_ms"] for n, r in rows),
+                **sum_bound(rows), "library_ms": sum(libs) if libs else None}
 
-    # per train step: each launch's per-shape time from phase 6
-    def per_step(specs, field):
-        out = 0.0
+    # serving: per 4-tile forward (times) and per volume (calls)
+    serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
+    kernels = [entry(name, SOURCE, replaces, main_launches[spec],
+                     [(n, serving[k]) for k, n in per_forward.items() if k[0] == spec])
+               for spec, name, replaces in (
+                   (conv3x3.FUSED, "conv3x3_gn fused GN-ReLU prologue", BDX),
+                   (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3))]
+    kernels.append(entry("group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
+                         main_folds, [(n, fold_table[k]) for k, n in per_forward_fold.items()]))
+
+    # per train step: each call's per-shape row from phase 6
+    def step_rows(specs):
+        out = []
         for key, n in conv_expected.items():
             if key[0] not in specs:
                 continue
             if key[0] == conv3x3.TRAIN_FWD:
-                row = train_table[(key[1], key[2], *key[3:7])]
-                out += n * row["fwd_" + field]
+                row, pre = train_table[(key[1], key[2], *key[3:7])], "fwd_"
             elif key[0] == conv3x3.TRAIN_DX:
-                row = train_table[(key[2], key[1], *key[3:7])]
-                out += n * row["dx_" + field]
+                row, pre = train_table[(key[2], key[1], *key[3:7])], "dx_"
             else:
-                out += n * nograd_table[key][field]
+                row, pre = nograd_table[key], ""
+            out.append((n, {f: row[pre + f] for f in ("ms", "plain_ms", "library_ms", "op_ms",
+                                                       "byte_ms")}
+                        | {"max_abs_err": row[pre + "err" if pre else "max_abs_err"]}))
         return out
 
     train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
-    kernels.append({
-        "name": "conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)",
-        "route": "cuda", "source": SOURCE, "replaces": K2,
-        "launches": sum(n for k, n in conv_run.items() if k[0] in train_specs),
-        "max_abs_err": max([r["fwd_err"] for r in train_table.values()]
-                           + [r["dx_err"] for r in train_table.values()]
-                           + [r["max_abs_err"] for k, r in nograd_table.items()
-                              if k[0] == conv3x3.PROLOGUE_OFF]),
-        "ms": per_step(train_specs, "ms"), "plain_ms": per_step(train_specs, "plain_ms")})
-    kernels.append({
-        "name": "conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass",
-        "route": "cuda", "source": SOURCE, "replaces": K2_GN,
-        "launches": sum(n for k, n in conv_run.items() if k[0] == conv3x3.FUSED),
-        "max_abs_err": max(r["max_abs_err"] for k, r in nograd_table.items()
-                           if k[0] == conv3x3.FUSED),
-        "ms": per_step((conv3x3.FUSED,), "ms"), "plain_ms": per_step((conv3x3.FUSED,), "plain_ms")})
-    kernels.append({
-        "name": "gn_relu", "route": "cuda", "source": GN_SOURCE, "replaces": GN_RELU,
-        "launches": sum(gn_run.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in gn_table.values()),
-        "ms": sum(n * gn_table[k]["ms"] for k, n in gn_expected.items()),
-        "plain_ms": sum(n * gn_table[k]["plain_ms"] for k, n in gn_expected.items())})
+    kernels.append(entry(
+        "conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)", SOURCE,
+        K2, sum(n for k, n in conv_run.items() if k[0] in train_specs), step_rows(train_specs)))
+    kernels.append(entry(
+        "conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass", SOURCE, K2_GN,
+        sum(n for k, n in conv_run.items() if k[0] == conv3x3.FUSED),
+        step_rows((conv3x3.FUSED,))))
+    kernels.append(entry("gn_relu", GN_SOURCE, GN_RELU, sum(gn_run.values()),
+                         [(n, gn_table[k]) for k, n in gn_expected.items()]))
+    results["fold_calls_per_step"] = sum(fold_run.values()) // 3
+    # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
+    results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]
+    results["step_calls"] = [[*k, n] for k, n in conv_expected.items()]
     results["train_step_library_dw_ms"] = sum(
         n * train_table[(k[1], k[2], *k[3:7])]["dw_ms"] for k, n in conv_expected.items()
         if k[0] == conv3x3.TRAIN_FWD)

@@ -3,8 +3,9 @@ multimodal_pl_tpu.
 
 The JAX package stays the reference; every module here sits at the path of
 its JAX counterpart and is tested against it (tests/test_torch_port_*.py).
-This package imports torch and never JAX; from the JAX package it imports
-only the JAX-free data pipeline (``multimodal_pl_tpu.data``).
+This package imports torch and never JAX, and nothing of the JAX package:
+where it needs a JAX-free module of it (the data pipeline, small helpers),
+it keeps its own copy, pinned to the original by a test.
 
 Activations are channels-last (B, D, H, W, C) at every public function, as in
 the JAX package. Parameters use the reference torch ``state_dict`` names, so

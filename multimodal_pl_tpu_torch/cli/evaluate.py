@@ -118,8 +118,8 @@ def _load_members(args, device):
 def main(argv=None):
     args = get_arguments().parse_args(argv)
 
-    from multimodal_pl_tpu.data.dataset import AMOSDataset
-    from multimodal_pl_tpu.data.nifti import write_nifti
+    from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+    from multimodal_pl_tpu_torch.data.nifti import write_nifti
     from multimodal_pl_tpu_torch.infer.metrics import label_scores, organ_scores_atlas
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
 

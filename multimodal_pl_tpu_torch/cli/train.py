@@ -139,7 +139,7 @@ def main(argv=None):
 
     import torch
 
-    from multimodal_pl_tpu.data.dataset import AMOSDataset
+    from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
     from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
     from multimodal_pl_tpu_torch.train.loop import LoopConfig, train_loop
     from multimodal_pl_tpu_torch.train.state import (

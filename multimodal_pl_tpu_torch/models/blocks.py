@@ -10,7 +10,8 @@ Routing of :class:`NoBottleneck` and :class:`GNReLUConv`, by grad mode:
 - without autograd recording (inference, the train step's gradient-free
   refiner pass):
   - stride 1: both convs run ``conv3x3_gn`` with the previous GroupNorm
-    folded into its prologue; conv2 also adds the residual in its epilogue
+    folded into its prologue (the fold rows from the statistics kernel with
+    ``conv_impl='kernel'``); conv2 also adds the residual in its epilogue
     when the block has no projection;
   - stride 2: conv1 is the library conv (after GN -> ReLU); conv2 runs
     ``conv3x3_gn`` with the prologue off after a GN -> ReLU in torch;
@@ -125,9 +126,11 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
 
-    def fold(self, x):
-        """(a, b) rows (B, C) f32 with ``self(x) == x * a + b``."""
-        return group_norm_fold(x, self.weight, self.bias, self.num_groups, self.eps)
+    def fold(self, x, impl: str):
+        """(a, b) rows (B, C) f32 with ``self(x) == x * a + b``; impl='kernel'
+        computes them with the statistics kernel on a CUDA tensor
+        (:func:`~multimodal_pl_tpu_torch.ops.norm.group_norm_fold`)."""
+        return group_norm_fold(x, self.weight, self.bias, self.num_groups, self.eps, impl)
 
     def relu(self, x, gn_impl: str):
         """relu(self(x)) through :func:`~multimodal_pl_tpu_torch.ops.gn_relu.group_norm_relu`
@@ -175,6 +178,7 @@ class NoBottleneck(nn.Module):
             self.downsample = GNReLUConv(inplanes, planes, group, stride,
                                          weight_std=weight_std, bias=False, gn_impl=gn_impl)
         self.conv3x3 = conv3x3_impl(conv_impl)
+        self.conv_impl = conv_impl
         self.conv3x3_train = TRAIN_CONV_IMPLS[conv_impl]
         self.gn_impl = check_gn_impl(gn_impl)
 
@@ -183,9 +187,9 @@ class NoBottleneck(nn.Module):
         if recording(x, self.conv2.weight):
             return self._train_forward(x)
         if self.stride == 1:
-            a, b = self.gn1.fold(x)
+            a, b = self.gn1.fold(x, self.conv_impl)
             out = self.conv3x3(x, self.conv1.kernel_for(x.dtype), a, b)
-            a, b = self.gn2.fold(out)
+            a, b = self.gn2.fold(out, self.conv_impl)
             res = x if self.downsample is None else None
             out = self.conv3x3(out, self.conv2.kernel_for(x.dtype), a, b, res=res)
             return out if res is not None else out + self.downsample(x)

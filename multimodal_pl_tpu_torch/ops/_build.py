@@ -2,9 +2,9 @@
 
 nvcc compiles ``csrc/<name>.cu`` (a plain C interface, no PyTorch headers)
 for sm_90a into ``build/<name>-<hash>/lib<name>.so`` inside the package
-directory, keyed by a hash of the source and the flags, at first use. The
-library is loaded with ctypes; the caller declares argtypes. A missing nvcc
-or a failed build raises.
+directory, keyed by a hash of the source, the local headers and the flags,
+at first use. The library is loaded with ctypes; the caller declares
+argtypes. A missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -36,8 +36,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Keyed by the source, every local header (``csrc/*.cuh``) and the flags,
+    so that an edit to any of them rebuilds."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 

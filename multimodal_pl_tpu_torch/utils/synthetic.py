@@ -1,9 +1,9 @@
 """Synthetic AMOS-like cases, a copy of
-``multimodal_pl_tpu/data/synthetic.py`` (with the two writers it calls,
-``data/nifti.py::write_nifti`` and ``data/supervision.py::generate_supervision_csv``),
-so that scripts driving the port need nothing of the JAX package to make
-their data. A test pins every file it writes to the original's, byte for byte
-(the NIfTI volumes after gunzip, since gzip stamps the time).
+``multimodal_pl_tpu/data/synthetic.py`` writing through the port's own
+``data/nifti.py::write_nifti`` and ``data/supervision.py``, so that scripts
+driving the port need nothing of the JAX package to make their data. A test
+pins every file it writes to the original's, byte for byte (the NIfTI volumes
+after gunzip, since gzip stamps the time).
 
 Small CT/MRI NIfTI volumes with ellipsoid "organs" (labels 1..13) in the
 layout the dataset reads (imagesTr/ + labelsTr/, amos_XXXX_0000 naming), a
@@ -13,64 +13,17 @@ matching atlas and a supervision csv.
 from __future__ import annotations
 
 import csv
-import gzip
 import os
-import struct
 
 import numpy as np
 from scipy.ndimage import gaussian_filter
 
-NUM_CLASSES = 14
-# CT case-id upper bound -> supervised organ label (data/supervision.py)
-_CT_RANGES = [(45, 3), (85, 4), (135, 5), (180, 6), (242, 7), (300, 8),
-              (370, 9), (440, 10), (460, 11), (480, 12), (500, 13)]
+from multimodal_pl_tpu_torch.data.nifti import write_nifti
+from multimodal_pl_tpu_torch.data.supervision import supervision_mask_for_case
+
 # CT ids spread across the supervision ranges, so a fixture set supervises
 # different organs, including labeled-modality ones (the refiner's rows)
 _SPREAD_CT_IDS = [40, 80, 130, 170, 240, 290, 360, 430, 455, 475, 30, 120, 230, 350]
-_NIFTI_CODES = {np.dtype(t): code for code, t in (
-    (2, np.uint8), (4, np.int16), (8, np.int32), (16, np.float32), (64, np.float64),
-    (256, np.int8), (512, np.uint16), (768, np.uint32), (1024, np.int64), (1280, np.uint64))}
-
-
-def write_nifti(path: str, data: np.ndarray, spacing=(1.0, 1.0, 1.0)) -> None:
-    """Write a (Z, Y, X) array as NIfTI-1 (gzip for .gz) with xyz spacing."""
-    data = np.ascontiguousarray(data)
-    code = _NIFTI_CODES.get(data.dtype)
-    if code is None:
-        data = data.astype(np.float32)
-        code = 16
-    hdr = bytearray(352)
-    struct.pack_into("<i", hdr, 0, 348)
-    shape_xyz = tuple(reversed(data.shape))
-    struct.pack_into("<8h", hdr, 40, 3, *shape_xyz, *([1] * (7 - len(shape_xyz))))
-    struct.pack_into("<h", hdr, 70, code)
-    struct.pack_into("<h", hdr, 72, data.dtype.itemsize * 8)  # bitpix
-    struct.pack_into("<8f", hdr, 76, 1.0, spacing[0], spacing[1], spacing[2], 0, 0, 0, 0)
-    struct.pack_into("<f", hdr, 108, 352.0)  # vox_offset
-    struct.pack_into("<f", hdr, 112, 1.0)    # scl_slope
-    struct.pack_into("<h", hdr, 252, 1)      # qform_code
-    struct.pack_into("<h", hdr, 254, 1)      # sform_code = SCANNER_ANAT
-    struct.pack_into("<4f", hdr, 280, spacing[0], 0, 0, 0)
-    struct.pack_into("<4f", hdr, 296, 0, spacing[1], 0, 0)
-    struct.pack_into("<4f", hdr, 312, 0, 0, spacing[2], 0)
-    hdr[344:348] = b"n+1\x00"
-    with (gzip.open(path, "wb") if str(path).endswith(".gz") else open(path, "wb")) as f:
-        f.write(bytes(hdr))
-        f.write(data.tobytes())
-
-
-def supervision_mask_for_case(case_id: int) -> np.ndarray:
-    """(14,) 0/1 mask indexed by label: a CT case supervises one organ by its
-    id range, an MRI case (id >= 500) none."""
-    mask = np.zeros(NUM_CLASSES, np.float32)
-    cid = int(case_id)
-    if cid >= 500:
-        return mask
-    for hi, label in _CT_RANGES:
-        if cid <= hi:
-            mask[label] = 1.0
-            break
-    return mask
 
 
 def write_supervision_csv(case_ids, out_path: str) -> None:

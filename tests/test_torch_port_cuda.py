@@ -1,5 +1,6 @@
-"""The CUDA kernels (conv3x3_gn, conv3x3_train, gn_relu) against their plain
-PyTorch versions on the GPU, and the model's gradients on the card.
+"""The CUDA kernels (conv3x3_gn, conv3x3_train, gn_relu, the GroupNorm fold
+statistics) against their plain PyTorch versions on the GPU, and the model's
+gradients on the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it also runs where JAX is not
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from multimodal_pl_tpu_torch.models import UNet3DFEAM
-from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu
+from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm
 from multimodal_pl_tpu_torch.ops.conv3x3 import conv3x3_gn, conv3x3_gn_reference, conv3x3_train
 from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu
 from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
@@ -34,6 +35,11 @@ def cuda_device():
     ((1, 2, 5, 33), 16, 48, True, True),
     ((11, 4, 6, 20), 24, 24, True, True),   # the refiner's width, B = 11
     ((2, 3, 5, 17), 48, 24, False, False),
+    ((2, 2, 6, 6), 192, 192, True, True),   # deep: K split across blocks
+    ((2, 2, 6, 6), 192, 192, False, False),
+    ((2, 4, 12, 12), 24, 96, True, False),  # Cin = 24: one zero-padded chunk
+    ((2, 4, 12, 12), 96, 24, False, True),  # Cout = 24
+    ((1, 4, 6, 8), 320, 288, True, True),   # Cout past 256: two output blocks
 ])
 def test_cuda_kernel_matches_plain(cuda_device, shape, cin, cout, prologue, with_res):
     """bf16 kernel vs the f32 plain version on the same bf16 inputs:
@@ -56,6 +62,47 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, cin, cout, prologue, with
     assert sum(conv3x3.launch_totals().values()) == 1
     err = (got - want).abs().max().item()
     assert err <= 1e-2 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cin,cout", [((2, 5, 9, 21), 32, 32), ((2, 2, 6, 6), 192, 192)])
+def test_cuda_kernel_is_deterministic(cuda_device, shape, cin, cout):
+    """Two calls give the same bits, with and without the K split (no float
+    atomics: split-K partials are summed in a fixed order)."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((*shape, cin), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=g) * 0.05).to(cuda_device, torch.bfloat16)
+    a, b = group_norm_fold(x, torch.ones(cin, device=cuda_device),
+                           torch.zeros(cin, device=cuda_device), 8)
+    first = conv3x3_gn(x, w, a, b, res=None)
+    second = conv3x3_gn(x, w, a, b, res=None)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,groups,mean", [((2, 4, 6, 8), 32, 16, 0.0),
+                                                 ((2, 16, 48, 48), 64, 16, 100.0),
+                                                 ((11, 8, 24, 24), 24, 4, 0.5),
+                                                 ((1, 2, 6, 6), 256, 16, -3.0)])
+def test_fold_kernel_matches_plain(cuda_device, shape, c, groups, mean):
+    """The fold statistics kernel (one read, Chan merges) against the plain
+    two-pass fold, std 1 around ``mean``: both rows within rel 1e-5 of their
+    largest magnitude (f32 summation order only), the same bits twice, one
+    counted call."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = (torch.randn((*shape, c), generator=g) + mean).to(cuda_device, torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    bi = (0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    norm.fold_launches.clear()
+    ka, kb = group_norm_fold(x, sc, bi, groups, impl="kernel")
+    torch.cuda.synchronize()
+    assert sum(norm.fold_launches.values()) == 1
+    pa, pb = group_norm_fold(x, sc, bi, groups)
+    for k, p in ((ka, pa), (kb, pb)):
+        assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+    ka2, kb2 = group_norm_fold(x, sc, bi, groups, impl="kernel")
+    assert torch.equal(ka, ka2) and torch.equal(kb, kb2)
 
 
 @pytest.mark.cuda

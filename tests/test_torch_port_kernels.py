@@ -105,7 +105,31 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
 
 
 def test_pack_weight_tap_order(rng):
-    w = _t(rng.standard_normal((32, 16, 3, 3, 3)).astype(np.float32))
-    wp = conv3x3.pack_weight(w)
-    assert wp.shape == (27, 16, 32)
-    assert torch.equal(wp[1 * 9 + 2 * 3 + 0], w[:, :, 1, 2, 0].T)
+    """The kernel's tile order [chunk][N block][tap][N/8][KC/8][8][8], with
+    Cin padded to whole chunks and Cout to whole N blocks by zeros."""
+    w = _t(rng.standard_normal((40, 24, 3, 3, 3)).astype(np.float32))
+    wp = conv3x3.pack_weight(w, 16, 32)
+    assert wp.shape == (2, 2, 27, 4, 2, 8, 8)
+    tap, kd, kh, kw = 1 * 9 + 2 * 3 + 0, 1, 2, 0
+    for c, nb, n8, k8, nr, kr in [(0, 0, 0, 0, 0, 0), (1, 0, 3, 0, 7, 5), (0, 1, 0, 1, 7, 1)]:
+        co, ci = nb * 32 + n8 * 8 + nr, c * 16 + k8 * 8 + kr
+        assert wp[c, nb, tap, n8, k8, nr, kr] == w[co, ci, kd, kh, kw]
+    assert not wp[1, :, :, :, 1].any() and not wp[:, 1, :, 1:].any()  # Cin 24..31, Cout 40..63
+    assert wp.abs().sum() == w.abs().sum()
+
+
+@pytest.mark.parametrize("shape,cin,cout,want", [
+    ((4, 64, 192, 192), 32, 32, (32, 32, 1)),     # serving, full resolution: one chunk
+    ((4, 32, 96, 96), 64, 64, (16, 64, 1)),       # chunks of 16: two blocks per SM
+    ((4, 4, 12, 12), 256, 256, (16, 256, 11)),    # serving, deepest: split K
+    ((2, 2, 6, 6), 192, 192, (16, 192, 18)),      # refiner dx: 4 tiles
+    ((2, 32, 96, 96), 24, 24, (32, 24, 1)),       # refiner width, one padded chunk
+    ((11, 16, 48, 48), 48, 24, (48, 24, 1)),
+    ((1, 4, 6, 8), 320, 288, (16, 256, 30)),      # Cout past 256: two N blocks
+])
+def test_plan(shape, cin, cout, want):
+    """KC, N and the K split the wrapper picks at the models' shapes; the
+    stages fit the kernel's shared memory."""
+    kc, n, split = conv3x3.plan(*shape, cin, cout)
+    assert (kc, n, split) == want
+    assert conv3x3.smem_bytes(kc, n, -(-cin // kc)) <= conv3x3.MAX_SMEM

@@ -77,6 +77,37 @@ def test_group_norm_fold_matches_bd_fold(rng):
         folded, norm.group_norm(_t(x), _t(scale), _t(bias), 16).numpy(), rtol=1e-5, atol=1e-4)
 
 
+def test_group_norm_fold_two_pass_at_large_mean(rng):
+    """mean 100, std 1: the plain fold equals bd_gn_fold to rel 1e-5 (f32
+    summation order only), where one-pass E[x^2] - mean^2 in f32 loses the
+    variance to cancellation (it misses by more than 1e-3)."""
+    x = (rng.standard_normal((2, 6, 10, 8, 32)) + 100).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(32)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(32)).astype(np.float32)
+    a, b = norm.group_norm_fold(_t(x), _t(scale), _t(bias), 8)
+    ja, jb = jbd.bd_gn_fold(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 8,
+                            blocked=(False,) * 3)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-5, atol=0)
+    xg = _t(x).reshape(2, -1, 8, 4).transpose(1, 2).reshape(2, 8, -1)
+    one_pass = xg.square().mean(-1) - xg.mean(-1).square()
+    two_pass = (xg - xg.mean(-1, keepdim=True)).square().mean(-1)
+    assert ((one_pass - two_pass).abs() / two_pass).max() > 1e-3
+
+
+def test_group_norm_fold_kernel_impl_on_cpu(rng):
+    """impl='kernel' on a CPU tensor is the plain fold (no launch); an
+    unknown impl raises."""
+    x = _t(rng.standard_normal((2, 3, 4, 5, 16)).astype(np.float32))
+    ones, zeros = torch.ones(16), torch.zeros(16)
+    norm.fold_launches.clear()
+    got = norm.group_norm_fold(x, ones, zeros, 4, impl="kernel")
+    want = norm.group_norm_fold(x, ones, zeros, 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and not norm.fold_launches
+    with pytest.raises(ValueError, match="impl"):
+        norm.group_norm_fold(x, ones, zeros, 4, impl="fast")
+
+
 def test_group_norm_bf16_stats_are_f32(rng):
     """bf16 input: statistics from the f32 two-pass moments of the bf16
     values, so the fold equals the f32 fold of the same (rounded) values."""
