@@ -14,34 +14,44 @@ Phases, each of which raises (non-zero exit) on any failed check:
    flagship UNet3DFEAM gives it: max|k - p| <= 1e-2 * max|p|; kernel, plain
    and library (cuDNN bf16 conv) times and the bound; then the GroupNorm
    fold statistics kernel vs the plain fold at every fused conv's input:
-   rows a, b within rel 1e-5;
-3. the whole model on one bf16 tile batch, conv_impl='kernel' vs 'plain'
-   with the same weights: relative L2 error of the logits <= 3e-2, 22 conv
-   calls (18 fused, 4 prologue-off) and 18 fold calls, every launched shape
-   covered by phase 2;
+   rows a, b within rel 1e-5; then the gn_relu forward kernel vs plain at
+   every gradient-free GroupNorm -> ReLU of the tile batch (the stride-2
+   blocks' three, the decoder projections, fusionConv, precls_conv):
+   max|k - p| <= 1e-2 * max|p|, with kernel, plain and library
+   (F.group_norm + ReLU) times and the bound;
+3. the whole model on one bf16 tile batch, kernels vs plain (conv_impl and
+   gn_impl 'plain') with the same weights: relative L2 error of the logits
+   <= 3e-2, 22 conv calls (18 fused, 4 prologue-off), 18 fold calls and 17
+   gn_relu calls, every launched shape covered by phase 2;
 4. the serving path: SlidingWindowPredictor(output='argmax', window_batch=4,
    bf16) over seeded 128 x 256 x 256 volumes (12 windows): a uint8 label map
-   of labels < 14, 66 conv and 54 fold calls per volume, agreement with the
-   plain model's label map; then predict_iter over 5 volumes (s/vol);
+   of labels < 14, 66 conv, 54 fold and 51 gn_relu calls per volume,
+   agreement with the plain model's label map; then predict_iter over 5
+   volumes (s/vol);
 5. the evaluation entry point: mpl-evaluate-torch's main() on 2 synthetic
    cases with random weights written as .npz; its CSV;
 6. the training kernels vs their plain versions at every shape one
    full-geometry train step (B = 1, 64 x 192 x 192, bf16) launches, derived
-   from the architecture: gn_relu at every GroupNorm width of the segmenter
-   and the refiner; conv3x3_train forward and dx at every stride-1 conv (dw,
-   the library's, by relative Frobenius norm); conv3x3_gn at the refiner's
-   gradient-free shapes (B = 11); kernel ms, plain ms, TFLOP/s;
+   from the architecture: the gn_relu forward at every GroupNorm width of
+   the segmenter and the refiner (and the refiner's gradient-free pass,
+   B = 11), the gn_relu backward at every GroupNorm under autograd (dx by
+   the forward's rule, ds and dt by relative norm <= 1e-3; library:
+   autograd of F.group_norm + ReLU); conv3x3_train forward and dx at every
+   stride-1 conv (dw, the library's, by relative Frobenius norm);
+   conv3x3_gn at the refiner's gradient-free shapes (B = 11); kernel ms,
+   plain ms, TFLOP/s;
 7. the training path: the train step at the full geometry from one seeded
    state and batch, kernel vs plain (total loss, segmenter gradients), then
    3 kernel steps: finite losses, moving parameters, finite tokens, the exact
-   calls per step of every kernel (the fold's 10 included), ms/step, peak
-   memory;
+   calls per step of every kernel (the fold's 10, gn_relu's 79 forward and
+   62 backward included), ms/step, peak memory;
 8. the training entry point: mpl-train-torch's main() on synthetic cases at
    64 x 192 x 192 for 2 epochs with validation after each (through the
    serving kernel), a checkpoint, and a resumed epoch.
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
-blocks launches a second, reduction kernel; a fold call launches two).
+blocks launches a second, reduction kernel; a fold call launches two; a
+gn_relu call one where a sample fits a thread-block cluster, else two).
 Kernel, plain and library times are device times per call (CUDA graph
 replays); bounds are max(FLOP / 989e12, bytes / 3.35e12) per call (H100 SXM
 dense bf16 and HBM3 peaks), with every input read once and every output
@@ -77,6 +87,8 @@ GN_FOLD = "multimodal_pl_tpu/ops/bd.py:439 bd_gn_fold (XLA)"
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 FOLD_REL = 1e-5       # fold rows kernel vs plain: f32 summation order only
+GN_BWD_REL = 1e-3     # gn_relu backward ds, dt kernel vs plain: f32 summation order
+GN_BWD = "multimodal_pl_tpu/ops/norm.py:95 _gn_relu_bwd (XLA; the VJP of row 5)"
 SOURCE = "multimodal_pl_tpu_torch/csrc/conv3x3_gn.cu"
 GN_SOURCE = "multimodal_pl_tpu_torch/csrc/gn_relu.cu"
 PATCH = (64, 192, 192)      # the training patch (StepConfig / cli/train.py defaults)
@@ -280,22 +292,27 @@ def unet_shapes(dhw, widths, layers, group, fusion_groups, precls_groups):
     the second), the GN-ReLU fusion head, four one-block decoder stages, the
     GN-ReLU classifier head. Returns (train convs [(Cin, Cout, DHW)], GNs
     [(C, groups, DHW)], gradient-free convs [(Cin, Cout, DHW, prologue,
-    residual)]). Per block: GN1 (and the projection's GN) on the input, GN2
-    and conv2 on the output, conv1 through conv3x3_train at stride 1 and the
-    library at stride 2; without grad, stride-1 convs are fused (conv2 adds
-    an identity residual) and a stride-2 block's conv2 is prologue-off."""
-    convs, gns, nograd = [], [], []
+    residual)], gradient-free gn_relu calls [(C, groups, DHW)]). Per block:
+    GN1 (and the projection's GN) on the input, GN2 and conv2 on the output,
+    conv1 through conv3x3_train at stride 1 and the library at stride 2;
+    without grad, stride-1 convs are fused (conv2 adds an identity residual,
+    the GNs fold into their prologues), a stride-2 block's GN1, GN2 and
+    projection GN run gn_relu and its conv2 is prologue-off, and every
+    projection and head runs gn_relu before its 1x1 conv."""
+    convs, gns, nograd, nograd_gns = [], [], [], []
 
     def block(cin, cout, d_in, stride):
         d_out = d_in if stride == 1 else _half(d_in)
         proj = stride != 1 or cin != cout
         gns.extend([(cin, group, d_in), (cout, group, d_out)] + [(cin, group, d_in)] * proj)
+        nograd_gns.extend([(cin, group, d_in)] * proj)
         if stride == 1:
             convs.extend([(cin, cout, d_out), (cout, cout, d_out)])
             nograd.extend([(cin, cout, d_out, True, False), (cout, cout, d_out, True, not proj)])
         else:
             convs.append((cout, cout, d_out))
             nograd.append((cout, cout, d_out, False, False))
+            nograd_gns.extend([(cin, group, d_in), (cout, group, d_out)])
         return d_out
 
     def stage(cin, cout, blocks, stride, d):
@@ -308,27 +325,40 @@ def unet_shapes(dhw, widths, layers, group, fusion_groups, precls_groups):
     for i in range(5):
         d.append(stage(chans[i], widths[i], layers[i], 1 if i == 0 else 2, d[-1]))
     gns.append((widths[4], fusion_groups, d[5]))
+    nograd_gns.append((widths[4], fusion_groups, d[5]))
     for cin, cout, scale in ((widths[4], widths[2], d[4]), (widths[2], widths[1], d[3]),
                              (widths[1], widths[0], d[2]), (widths[0], widths[0], d[1])):
         stage(cin, cout, 1, 1, scale)
     gns.append((widths[0], precls_groups, d[1]))
-    return convs, gns, nograd
+    nograd_gns.append((widths[0], precls_groups, d[1]))
+    return convs, gns, nograd, nograd_gns
+
+
+def serving_gn_keys():
+    """gn_relu calls of one forward of a 4-tile batch of the flagship
+    UNet3DFEAM: {(C, groups, B, D, H, W): calls}."""
+    from collections import Counter
+
+    sites = unet_shapes(TILE, [32, 64, 128, 256, 256], (1, 2, 2, 2, 2), 16, 16, 16)[3]
+    return Counter((c, groups, WINDOW_BATCH, *dhw) for c, groups, dhw in sites)
 
 
 def training_shapes(cfg):
-    """-> {kernel key: launches per train step} for conv3x3 (train fwd/dx,
-    fused, prologue-off) and gn_relu, from the architecture of ``cfg``."""
+    """-> ({kernel key: launches per train step} for conv3x3 (train fwd/dx,
+    fused, prologue-off), the same for gn_relu under autograd (one forward
+    and one backward call each), gn_relu calls without autograd (the
+    refiner's gradient-free pass)), from the architecture of ``cfg``."""
     from collections import Counter
 
     from multimodal_pl_tpu_torch.ops import conv3x3
 
     b, f, k = cfg.base, cfg.refiner_filter, cfg.refine_grad_organs
     rest = cfg.num_classes - 1 - k
-    seg_convs, seg_gns, _ = unet_shapes(PATCH, [b, 2 * b, 4 * b, 8 * b, 8 * b], cfg.layers,
-                                        16, 16, 16)
+    seg_convs, seg_gns, _, _ = unet_shapes(PATCH, [b, 2 * b, 4 * b, 8 * b, 8 * b], cfg.layers,
+                                           16, 16, 16)
     half = _half(PATCH)  # the refiner runs at half resolution after its stride-2 stem
-    ref_convs, ref_gns, ref_nograd = unet_shapes(half, [f, 2 * f, 4 * f, 8 * f, 8 * f],
-                                                 (1, 1, 1, 1, 1), 4, f // 2, f // 4)
+    ref_convs, ref_gns, ref_nograd, ref_nograd_gns = unet_shapes(
+        half, [f, 2 * f, 4 * f, 8 * f, 8 * f], (1, 1, 1, 1, 1), 4, f // 2, f // 4)
     ref_convs.append((f, f, half))                       # the refiner's conv1
     ref_nograd.append((f, f, half, False, False))
     conv = Counter()
@@ -343,19 +373,23 @@ def training_shapes(cfg):
     for batch, gns in ((1, seg_gns), (k, ref_gns)):
         for c, groups, dhw in gns:
             gn[(c, groups, batch, *dhw)] += 1
-    return conv, gn
+    gn_nograd = Counter((c, groups, rest, *dhw) for c, groups, dhw in ref_nograd_gns)
+    return conv, gn, gn_nograd
 
 
-def phase_gn(dev, results, gn_keys):
-    """Phase 6: gn_relu kernel vs plain at every training GroupNorm shape;
-    the library time is F.group_norm then an in-place ReLU on the bf16
-    channels-last input."""
+def _gn_library(x_cl, groups, sc, bi):
+    """The library's GroupNorm -> ReLU: F.group_norm, then an in-place ReLU."""
     import torch.nn.functional as F
 
-    from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
+    return F.relu(F.group_norm(x_cl, groups, sc, bi, 1e-5), inplace=True)
 
-    def library(x_cl, groups, sc, bi):
-        return F.relu(F.group_norm(x_cl, groups, sc, bi, 1e-5), inplace=True)
+
+def phase_gn(dev, results, gn_keys, name="gn_relu"):
+    """Phases 2 and 6: the gn_relu forward kernel vs plain at each (C,
+    groups, B, D, H, W) of ``gn_keys``; the library time is F.group_norm
+    then an in-place ReLU on the bf16 channels-last input. Bound: read x,
+    write y."""
+    from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
 
     g = torch.Generator().manual_seed(3)
     table = {}
@@ -376,16 +410,72 @@ def phase_gn(dev, results, gn_keys):
                    "max_abs_plain": scale,
                    "ms": time_ms(lambda: group_norm_relu(x, sc, bi, groups), reps),
                    "plain_ms": time_ms(lambda: group_norm_relu_reference(x, sc, bi, groups), reps),
-                   "library_ms": time_ms(lambda: library(x_cl, groups, sc16, bi16), reps),
+                   "library_ms": time_ms(lambda: _gn_library(x_cl, groups, sc16, bi16), reps),
                    **bound(0.0, 4 * x.numel() + 2 * 4 * c)}
-        row["gb_s"] = 3 * x.numel() * 2 / row["ms"] / 1e6  # reads x twice, writes once
+        row["gb_s"] = 2 * x.numel() * 2 / row["ms"] / 1e6  # one read of x, one write
         print(f"  gn_relu B={batch} C={c:3d} G={groups:2d} @{d}x{h}x{w} max|k-p|={err:.3g} "
-              f"(max|p|={scale:.3g})  kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s)  "
-              f"plain {row['plain_ms']:.3f} ms  library {row['library_ms']:.3f} ms  bound "
-              f"{row['bound_ms']:.3f} ms", flush=True)
+              f"(max|p|={scale:.3g})  kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s at the "
+              f"one-read bound)  plain {row['plain_ms']:.3f} ms  library {row['library_ms']:.3f} "
+              f"ms  bound {row['bound_ms']:.3f} ms", flush=True)
         check(err <= 1e-2 * scale, f"gn_relu kernel disagrees with plain at {row}")
         table[(c, groups, batch, d, h, w)] = row
-        results["gn_relu"].append(row)
+        results[name].append(row)
+    torch.cuda.empty_cache()
+    return table
+
+
+def phase_gn_bwd(dev, results, gn_keys):
+    """Phase 6: the gn_relu backward kernel vs its plain version at every
+    GroupNorm shape of the train step, both from the forward kernel's
+    statistics: dx within 1e-2 * max|dx| (bf16 output rounding), ds and dt
+    by relative norm <= GN_BWD_REL (f32 summation order). The library time
+    is autograd's backward of F.group_norm + ReLU (its forward and backward
+    replayed, less its forward). Bound: read x and dy, write dx."""
+    from multimodal_pl_tpu_torch.ops.gn_relu import (
+        gn_relu_backward, gn_relu_forward, group_norm_relu_backward_reference)
+
+    g = torch.Generator().manual_seed(8)
+    table = {}
+    for c, groups, batch, d, h, w in sorted(gn_keys):
+        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        dy = torch.randn((batch, d, h, w, c), generator=g).to(dev, torch.bfloat16)
+        sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        _, stats = gn_relu_forward(x, sc, bi, groups)
+        kdx, kds, kdt = gn_relu_backward(x, dy, sc, bi, stats, groups)
+        torch.cuda.synchronize()
+        pdx, pds, pdt = group_norm_relu_backward_reference(x, dy, sc, bi, stats, groups)
+        err = (kdx.float() - pdx.float()).abs().max().item()
+        scale = pdx.float().abs().max().item()
+        rel = max(((k - q).norm() / q.norm().clamp_min(1e-30)).item()
+                  for k, q in ((kds, pds), (kdt, pdt)))
+        reps = 5 if x.numel() > 2 ** 26 else 20
+        x_cl = x.permute(0, 4, 1, 2, 3).requires_grad_()
+        dy_cl = dy.permute(0, 4, 1, 2, 3)
+        sc16, bi16 = (t.to(torch.bfloat16).requires_grad_() for t in (sc, bi))
+
+        def lib_fwd():
+            return _gn_library(x_cl, groups, sc16, bi16)
+
+        def lib_fwd_bwd():
+            return torch.autograd.grad(lib_fwd(), (x_cl, sc16, bi16), dy_cl)
+
+        row = {"c": c, "groups": groups, "b": batch, "dhw": [d, h, w], "max_abs_err": err,
+               "max_abs_plain": scale, "dsdt_rel": rel,
+               "ms": time_ms(lambda: gn_relu_backward(x, dy, sc, bi, stats, groups), reps),
+               "plain_ms": time_ms(lambda: group_norm_relu_backward_reference(
+                   x, dy, sc, bi, stats, groups), reps),
+               "library_ms": time_ms(lib_fwd_bwd, reps) - time_ms(lib_fwd, reps),
+               **bound(0.0, 6 * x.numel() + 4 * (2 * batch * groups + 4 * c))}
+        print(f"  gn_relu backward B={batch} C={c:3d} G={groups:2d} @{d}x{h}x{w} "
+              f"max|dx k-p|={err:.3g} (max|p|={scale:.3g}) ds/dt rel {rel:.3g}  kernel "
+              f"{row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  library "
+              f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms", flush=True)
+        check(err <= 1e-2 * scale and rel <= GN_BWD_REL,
+              f"gn_relu backward kernel disagrees with plain at {row}")
+        table[(c, groups, batch, d, h, w)] = row
+        results["gn_relu_backward"].append(row)
+        del x, dy, x_cl, dy_cl, kdx, pdx
     torch.cuda.empty_cache()
     return table
 
@@ -476,9 +566,10 @@ def train_batch(dev, cfg):
     return to_device(host, cfg, dev)
 
 
-def phase_step(dev, results, conv_expected, gn_expected, fold_expected):
+def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_expected):
     """Phase 7: the train step at the full geometry. Returns the kernel
-    calls of the 3 timed steps (conv3x3 keys, gn_relu keys, fold keys)."""
+    calls of the 3 timed steps (conv3x3 keys, gn_relu forward and backward
+    keys, fold keys)."""
     import dataclasses
     from collections import Counter
 
@@ -543,7 +634,8 @@ def phase_step(dev, results, conv_expected, gn_expected, fold_expected):
     step = make(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    conv_total, gn_total, fold_total, step_ms, metrics = Counter(), Counter(), Counter(), [], []
+    conv_total, gn_total, gn_bwd_total, fold_total = Counter(), Counter(), Counter(), Counter()
+    step_ms, metrics = [], []
     first = state
     for _ in range(3):
         conv3x3.reset_launches()
@@ -557,10 +649,14 @@ def phase_step(dev, results, conv_expected, gn_expected, fold_expected):
               f"conv3x3 launches per step {dict(conv3x3.launches)} != {dict(conv_expected)}")
         check(Counter(gn_relu.launches) == gn_expected,
               f"gn_relu launches per step {dict(gn_relu.launches)} != {dict(gn_expected)}")
+        check(Counter(gn_relu.bwd_launches) == gn_bwd_expected,
+              f"gn_relu backward launches per step {dict(gn_relu.bwd_launches)} != "
+              f"{dict(gn_bwd_expected)}")
         check(Counter(norm.fold_launches) == fold_expected,
               f"fold calls per step {dict(norm.fold_launches)} != {dict(fold_expected)}")
         conv_total.update(conv3x3.launches)
         gn_total.update(gn_relu.launches)
+        gn_bwd_total.update(gn_relu.bwd_launches)
         fold_total.update(norm.fold_launches)
         metrics.append({k: float(v) for k, v in m.items()})
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -590,14 +686,16 @@ def phase_step(dev, results, conv_expected, gn_expected, fold_expected):
                            metrics=metrics,
                            launches_per_step=per_step,
                            gn_relu_launches_per_step=sum(gn_expected.values()),
+                           gn_relu_backward_launches_per_step=sum(gn_bwd_expected.values()),
                            fold_launches_per_step=sum(fold_expected.values()))
     print(f"[7] 3 kernel steps at B=1 x {PATCH}, bf16: {[round(t, 1) for t in step_ms]} ms/step "
           f"(then 5 more: median {np.median(steady):.1f} ms), peak {peak_gib:.2f} GiB; losses "
           f"{[round(m['loss'], 5) for m in metrics]}; calls per step {per_step} + gn_relu "
-          f"{sum(gn_expected.values())} + fold {sum(fold_expected.values())}", flush=True)
+          f"{sum(gn_expected.values())} forward, {sum(gn_bwd_expected.values())} backward + fold "
+          f"{sum(fold_expected.values())}", flush=True)
     del state, first, step, batch
     torch.cuda.empty_cache()
-    return conv_total, gn_total, fold_total
+    return conv_total, gn_total, gn_bwd_total, fold_total
 
 
 def phase_train_cli(tmp):
@@ -666,7 +764,8 @@ def main() -> int:
     card = card_line()
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
-               "fold": [], "gn_relu": [], "conv3x3_train": [], "phase_s": {}}
+               "fold": [], "gn_relu": [], "gn_relu_serving": [], "gn_relu_backward": [],
+               "conv3x3_train": [], "phase_s": {}}
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -697,22 +796,28 @@ def main() -> int:
     table = phase_kernels(dev, results)
     print("[2] GroupNorm fold statistics kernel vs plain at every fused conv's input", flush=True)
     fold_table = phase_fold(dev, results, fold_keys(Counter(table.keys()), 16))
+    print("[2] gn_relu forward kernel vs plain at every gradient-free GroupNorm -> ReLU",
+          flush=True)
+    serving_gn = serving_gn_keys()
+    gn_serving_table = phase_gn(dev, results, serving_gn, "gn_relu_serving")
     phase_done("serving kernels")
 
     # ---- phase 3: whole model, kernel vs plain -----------------------------
     model = UNet3DFEAM(deep_up=True, conv_impl="kernel",
                        generator=torch.Generator().manual_seed(0)).to(dev).eval()
-    plain = UNet3DFEAM(deep_up=True, conv_impl="plain").to(dev).eval()
+    plain = UNet3DFEAM(deep_up=True, conv_impl="plain", gn_impl="plain").to(dev).eval()
     plain.load_state_dict(model.state_dict())
     x = torch.randn((WINDOW_BATCH, *TILE, 1), generator=torch.Generator().manual_seed(2)).to(
         dev, torch.bfloat16)
     with torch.inference_mode():
         conv3x3.reset_launches()
         norm.fold_launches.clear()
+        gn_relu.reset_launches()
         lk = model(x, aux=False)
         torch.cuda.synchronize()
         per_forward = dict(conv3x3.launches)
         per_forward_fold = dict(norm.fold_launches)
+        per_forward_gn = Counter(gn_relu.launches)
         totals = conv3x3.launch_totals()
         lp = plain(x, aux=False)
         rel = ((lk.float() - lp.float()).norm() / lp.float().norm()).item()
@@ -729,7 +834,10 @@ def main() -> int:
     check(totals == {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
                      conv3x3.TRAIN_DX: 0}, f"launches {totals} != 18 + 4")
     check(sum(per_forward_fold.values()) == 18, f"fold calls {per_forward_fold} != 18")
-    missing = sorted(set(per_forward) - set(table)) + sorted(set(per_forward_fold) - set(fold_table))
+    check(per_forward_gn == serving_gn and sum(per_forward_gn.values()) == 17,
+          f"gn_relu calls {dict(per_forward_gn)} != the 17 derived {dict(serving_gn)}")
+    missing = (sorted(set(per_forward) - set(table)) + sorted(set(per_forward_fold) - set(fold_table))
+               + sorted(set(per_forward_gn) - set(gn_serving_table)))
     check(not missing, f"shapes launched by the model but not checked in phase 2: {missing}")
     del lk, lp, x
     torch.cuda.empty_cache()
@@ -749,12 +857,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     conv3x3.reset_launches()
     norm.fold_launches.clear()
+    gn_relu.reset_launches()
     t0 = time.perf_counter()
     labels = pred(vol)
     torch.cuda.synchronize()
     one_shot_s = time.perf_counter() - t0
     main_launches = conv3x3.launch_totals()
     main_folds = sum(norm.fold_launches.values())
+    main_gn = sum(gn_relu.launches.values())
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(labels.dtype == torch.uint8 and tuple(labels.shape) == VOL,
           f"label map {labels.dtype} {tuple(labels.shape)}")
@@ -763,6 +873,7 @@ def main() -> int:
                             conv3x3.TRAIN_DX: 0},
           f"main-path launches {main_launches} != 54 + 12 (66)")
     check(main_folds == 54, f"main-path fold calls {main_folds} != 54")
+    check(main_gn == 51, f"main-path gn_relu calls {main_gn} != 51 (17 per tile batch)")
     agree = (predictor(plain)(vol) == labels).float().mean().item()
     check(agree >= 0.95, f"label agreement with the plain model {agree} < 0.95")
     t0 = time.perf_counter()
@@ -775,11 +886,13 @@ def main() -> int:
                        for s, v in zip(streamed, vols))
     check(stream_agree >= 0.999, f"predict_iter vs one-shot agreement {stream_agree}")
     results.update(main_path_launches=main_launches, main_path_folds=main_folds,
+                   main_path_gn_relu=main_gn,
                    one_shot_s_per_vol=one_shot_s,
                    stream_s_per_vol=stream_s, label_agreement=agree,
                    stream_vs_one_shot=stream_agree, peak_gib=peak_gib)
     print(f"[4] {VOL} volume, {TILE} tiles, window batch {WINDOW_BATCH}, bf16, argmax: "
-          f"launches {main_launches} + fold {main_folds}; label agreement with plain {agree:.5f}; "
+          f"launches {main_launches} + fold {main_folds} + gn_relu {main_gn}; label agreement "
+          f"with plain {agree:.5f}; "
           f"one-shot {one_shot_s:.3f} s/vol; predict_iter {stream_s:.3f} s/vol "
           f"({1 / stream_s:.3f} vol/s, agrees with one-shot {stream_agree:.6f}); "
           f"peak {peak_gib:.2f} GiB", flush=True)
@@ -799,14 +912,14 @@ def main() -> int:
     print(f"[5] mpl-evaluate-torch: {len(rows) - 1} cases written to per_case_dice.csv",
           flush=True)
 
-    check(not gn_relu.launches, f"gn_relu launched on the serving path: {dict(gn_relu.launches)}")
     phase_done("serving")
 
     # ---- phase 6: the training kernels vs plain at every train-step shape ----
-    conv_expected, gn_expected = training_shapes(StepConfig())
+    conv_expected, gn_expected, gn_nograd = training_shapes(StepConfig())
     print(f"[6] training kernels vs plain at every shape of one B=1 x {PATCH} train step "
           f"(bf16 inputs; plain in f32, TF32 off)", flush=True)
-    gn_table = phase_gn(dev, results, gn_expected)
+    gn_table = phase_gn(dev, results, gn_expected + gn_nograd)
+    gn_bwd_table = phase_gn_bwd(dev, results, gn_expected)
     train_table = phase_train_conv(dev, results, conv_expected)
     rest = sorted({k for k in conv_expected if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)})
     nograd_table = {}
@@ -821,8 +934,8 @@ def main() -> int:
     # ---- phase 7: the training path ------------------------------------------
     # every step launches exactly the derived shapes (checked per step), and
     # phase 6 held the kernels against their plain versions at each of them
-    conv_run, gn_run, fold_run = phase_step(dev, results, conv_expected, gn_expected,
-                                            fold_expected)
+    conv_run, gn_run, gn_bwd_run, fold_run = phase_step(
+        dev, results, conv_expected, gn_expected + gn_nograd, gn_expected, fold_expected)
     phase_done("train step")
 
     # ---- phase 8: the training entry point -----------------------------------
@@ -848,6 +961,8 @@ def main() -> int:
                    (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3))]
     kernels.append(entry("group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
                          main_folds, [(n, fold_table[k]) for k, n in per_forward_fold.items()]))
+    kernels.append(entry("gn_relu forward (gn_relu_fwd_bf16), serving", GN_SOURCE, GN_RELU,
+                         main_gn, [(n, gn_serving_table[k]) for k, n in serving_gn.items()]))
 
     # per train step: each call's per-shape row from phase 6
     def step_rows(specs):
@@ -874,8 +989,12 @@ def main() -> int:
         "conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass", SOURCE, K2_GN,
         sum(n for k, n in conv_run.items() if k[0] == conv3x3.FUSED),
         step_rows((conv3x3.FUSED,))))
-    kernels.append(entry("gn_relu", GN_SOURCE, GN_RELU, sum(gn_run.values()),
-                         [(n, gn_table[k]) for k, n in gn_expected.items()]))
+    kernels.append(entry("gn_relu forward (gn_relu_fwd_bf16), train step", GN_SOURCE, GN_RELU,
+                         sum(gn_run.values()),
+                         [(n, gn_table[k]) for k, n in (gn_expected + gn_nograd).items()]))
+    kernels.append(entry("gn_relu backward (gn_relu_bwd_bf16), train step", GN_SOURCE, GN_BWD,
+                         sum(gn_bwd_run.values()),
+                         [(n, gn_bwd_table[k]) for k, n in gn_expected.items()]))
     results["fold_calls_per_step"] = sum(fold_run.values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

@@ -80,15 +80,21 @@ class SlidingWindowPredictor:
     output='logits' returns count-normalized blended logits (D, H, W, C) f32
     (evaluate_amos.py:261-279); 'argmax' returns the uint8 label map (D, H, W)
     and needs no count accumulator (argmax is invariant to the per-voxel
-    count, which all channels share)."""
+    count, which all channels share).
+
+    ``device`` defaults to the GPU; without one the constructor raises.
+    Pass ``device="cpu"`` to run on the CPU."""
 
     def __init__(self, apply_fn: Callable, tile: Sequence[int], num_classes: int,
                  window_batch: int = 2, tta: bool = False,
                  bucket: Sequence[int] = (32, 64, 64), overlap: float = 0.25,
-                 compute_dtype: torch.dtype = torch.float32, device="cpu",
+                 compute_dtype: torch.dtype = torch.float32, device="cuda",
                  output: str = "logits"):
         if output not in ("logits", "argmax"):
             raise ValueError(f"output must be 'logits' or 'argmax', got {output!r}")
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"SlidingWindowPredictor(device={device!r}): no CUDA device is "
+                               "available; pass device='cpu' to run on the CPU")
         self.apply_fn = apply_fn
         self.tile = tuple(tile)
         self.num_classes = num_classes

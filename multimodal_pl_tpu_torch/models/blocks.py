@@ -13,9 +13,9 @@ Routing of :class:`NoBottleneck` and :class:`GNReLUConv`, by grad mode:
     folded into its prologue (the fold rows from the statistics kernel with
     ``conv_impl='kernel'``); conv2 also adds the residual in its epilogue
     when the block has no projection;
-  - stride 2: conv1 is the library conv (after GN -> ReLU); conv2 runs
-    ``conv3x3_gn`` with the prologue off after a GN -> ReLU in torch;
-  - the heads run GN -> ReLU in torch;
+  - stride 2: conv1 is the library conv after ``group_norm_relu``; conv2
+    runs ``conv3x3_gn`` with the prologue off after ``group_norm_relu``;
+  - the heads and projections run ``group_norm_relu`` before their 1x1 conv;
 - while autograd records (grad mode on and the input or a weight requires
   grad), the route the JAX package trains: every GN -> ReLU is
   ``group_norm_relu``, every stride-1 conv ``conv3x3_train``, the stride-2
@@ -140,8 +140,9 @@ class GroupNorm(nn.Module):
 
 class GNReLUConv(nn.Sequential):
     """GroupNorm -> ReLU -> 1x1x1 conv head (reference fusionConv / deepout /
-    precls_conv / downsample: an nn.Sequential, so keys are .0 and .2). While
-    autograd records, the GN -> ReLU is ``group_norm_relu``."""
+    precls_conv / downsample: an nn.Sequential, so keys are .0 and .2). The
+    GN -> ReLU is ``group_norm_relu`` (its kernel with gn_impl='kernel' on a
+    CUDA tensor, with or without autograd)."""
 
     def __init__(self, cin: int, cout: int, num_groups: int = 16, stride: int = 1,
                  weight_std: bool = False, bias: bool = True, gn_impl: str = "kernel"):
@@ -152,10 +153,8 @@ class GNReLUConv(nn.Sequential):
         self.gn_impl = check_gn_impl(gn_impl)
 
     def forward(self, x):
-        gn, relu, conv = self
-        if recording(x, gn.weight):
-            return conv(gn.relu(x, self.gn_impl))
-        return conv(relu(gn(x)))
+        gn, _, conv = self
+        return conv(gn.relu(x, self.gn_impl))
 
 
 class NoBottleneck(nn.Module):
@@ -193,8 +192,8 @@ class NoBottleneck(nn.Module):
             res = x if self.downsample is None else None
             out = self.conv3x3(out, self.conv2.kernel_for(x.dtype), a, b, res=res)
             return out if res is not None else out + self.downsample(x)
-        out = self.conv1(torch.relu(self.gn1(x)))
-        out = torch.relu(self.gn2(out)).contiguous()
+        out = self.conv1(self.gn1.relu(x, self.gn_impl))
+        out = self.gn2.relu(out, self.gn_impl)
         out = self.conv3x3(out, self.conv2.kernel_for(x.dtype))
         return out + self.downsample(x)
 

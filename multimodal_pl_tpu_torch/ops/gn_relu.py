@@ -1,43 +1,66 @@
-"""GroupNorm -> ReLU for training, port of
+"""GroupNorm -> ReLU and its gradient, port of
 ``multimodal_pl_tpu/ops/pallas/fused_gn_relu.py::fused_group_norm_relu`` and
 of its custom VJP (``multimodal_pl_tpu/ops/norm.py:81-102``).
 
-:func:`group_norm_relu` is an autograd function:
+:func:`group_norm_relu` is differentiable in x, scale and bias:
 
-- forward: the CUDA kernel (``csrc/gn_relu.cu``) for a CUDA tensor, which
-  raises if it cannot launch; for a CPU tensor, or with ``impl='plain'``, the
-  plain version :func:`group_norm_relu_reference`. Both compute the kernel's
-  formula: one-pass f32 moments ``E[x^2] - mean^2`` per (sample, group),
-  eps 1e-5, the affine in f32 before the cast to x.dtype;
-- backward: recomputes the reference formula (the two-pass
-  :func:`~multimodal_pl_tpu_torch.ops.norm.group_norm` followed by ReLU)
-  under autograd, as ``_gn_relu_bwd`` does. Only the inputs are saved.
+- forward: the CUDA kernel ``gn_relu_fwd_bf16`` (``csrc/gn_relu.cu``) for a
+  CUDA tensor, which raises if it cannot launch; for a CPU tensor, or with
+  ``impl='plain'``, the plain version :func:`group_norm_relu_reference`.
+  Both compute two-pass-accurate f32 statistics per (sample, group), eps
+  1e-5, then ``relu(((f32(x) - mean) * inv) * s + t)`` with the affine
+  rounded to x.dtype first, cast to x.dtype;
+- backward: the CUDA kernel ``gn_relu_bwd_bf16`` for a CUDA tensor, else
+  the plain version :func:`group_norm_relu_backward_reference`: the
+  GroupNorm -> ReLU gradient in f32 from x, the incoming gradient and the
+  forward's per-(sample, group) mean and inv, which are all that is saved
+  besides the inputs.
 
-``launches`` counts kernel calls by (C, groups, B, D, H, W), only where the
-kernel is launched (one call = its statistics, moments and normalize
-launches).
+Without autograd recording (inference, the train step's gradient-free
+refiner pass) only the forward runs.
+
+Each kernel takes one of two routes (``csrc/gn_relu.cu``): ``'cluster'``,
+one launch where a sample (for the backward: all B samples, x and dy) fits
+in the shared memory of a thread-block cluster, else ``'grid'``, two
+launches. ``launches`` counts forward kernel calls and ``bwd_launches``
+backward kernel calls by (C, groups, B, D, H, W), only where a kernel is
+launched.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from multimodal_pl_tpu_torch.ops import _build
-from multimodal_pl_tpu_torch.ops.norm import group_norm
+from multimodal_pl_tpu_torch.ops.norm import _group_stats
 
 EPS = 1e-5
 IMPLS = ("kernel", "plain")
-STATS_VECS = 16384  # 16-byte vectors per statistics block (64 per thread)
-NORM_VECS = 8192    # 16-byte vectors per normalize block (32 per thread)
+PATHS = ("cluster", "grid")
+STATS_CLUSTER = 8  # blocks of a statistics launch that merge on chip (csrc)
+# 16-byte vectors per block of a grid-route launch: at least the first
+# (statistics and elementwise launches), at most the second (elementwise:
+# past one wave of about 4 blocks per SM of an H100's 132, shorter blocks in
+# more waves stream faster than one wave of long ones)
+BLOCK_VECS = (2048, 8192)
+BLOCKS = 4 * 132
+# shared memory of a cluster block beyond its tiles (csrc FWD_SCRATCH,
+# BWD_SCRATCH), and 16 bytes per channel
+SCRATCH_BYTES = {False: 4 * 2 * 256 * 8 + 256 * 12, True: 4 * 2 * 256 * 8 + 256 * 8}
+CLUSTER_BLOCK_VECS = 2048  # 16-byte vectors per cluster block, where the card allows
 
 launches: collections.Counter = collections.Counter()
+bwd_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     launches.clear()
+    bwd_launches.clear()
 
 
 def _check_groups(x: torch.Tensor, groups: int) -> None:
@@ -45,98 +68,250 @@ def _check_groups(x: torch.Tensor, groups: int) -> None:
         raise ValueError(f"channels {x.shape[-1]} not divisible by groups {groups}")
 
 
+def _reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int):
+    """-> (y, stats (B, 2, groups) f32 = the groups' mean and inv)."""
+    _check_groups(x, groups)
+    cpg = x.shape[-1] // groups
+    mean_c, inv_c, dev = _group_stats(x, groups, EPS)
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    s, t = scale.to(x.dtype).float(), bias.to(x.dtype).float()
+    y = torch.relu(dev * inv_c.view(bshape) * s + t).to(x.dtype)
+    return y, torch.stack([mean_c[:, ::cpg], inv_c[:, ::cpg]], 1)
+
+
 def group_norm_relu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                               groups: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: one-pass f32 moments per (sample,
-    group) (fused_gn_relu.py:84-94), then relu((f32(x) - mean) * inv * scale
-    + bias) in f32 with the affine cast to x.dtype first, cast to x.dtype."""
+    """Plain PyTorch version of the forward kernel: two-pass f32 statistics
+    per (sample, group) (mean, then the mean of squared deviations), then
+    relu(((f32(x) - mean) * inv) * s + t) in f32 with s, t the affine cast to
+    x.dtype, cast to x.dtype."""
+    return _reference(x, scale, bias, groups)[0]
+
+
+def group_norm_relu_backward_reference(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                                       bias: torch.Tensor, stats: torch.Tensor, groups: int):
+    """Plain PyTorch version of the backward kernel, in f32: with xhat =
+    (x - mean) * inv and gy = dy where the forward's pre-activation xhat * s
+    + t is positive (else 0), dt = sum gy and ds = sum gy * xhat over samples
+    and voxels, and per (sample, group) P = sum gy * s, Q = sum gy * s * xhat
+    over the group's channels and voxels, dx = inv * (gy * s - (P + xhat *
+    Q) / count). stats: the forward's (B, 2, groups) mean and inv. Returns
+    (dx in x.dtype, ds, dt in f32)."""
     _check_groups(x, groups)
     b, c = x.shape[0], x.shape[-1]
     cpg = c // groups
     xf = x.float().reshape(b, -1, c)
-    count = float(xf.shape[1] * cpg)
-    gmean = xf.sum(1).reshape(b, groups, cpg).sum(-1) / count
-    gvar = xf.square().sum(1).reshape(b, groups, cpg).sum(-1) / count - gmean * gmean
-    mean = gmean.repeat_interleave(cpg, dim=-1)
-    inv = torch.rsqrt(gvar + EPS).repeat_interleave(cpg, dim=-1)
+    mean_c, inv_c = (stats[:, i].float().repeat_interleave(cpg, -1)[:, None] for i in (0, 1))
     s, t = scale.to(x.dtype).float(), bias.to(x.dtype).float()
-    y = (xf - mean[:, None]) * inv[:, None] * s + t
-    return torch.relu(y).to(x.dtype).reshape(x.shape)
+    xhat = (xf - mean_c) * inv_c
+    gy = torch.where(xhat * s + t > 0, dy.float().reshape(b, -1, c), 0.0)
+    dt_nc, ds_nc = gy.sum(1), (gy * xhat).sum(1)
+    count = float(xf.shape[1] * cpg)
+    p, q = ((v * s).reshape(b, groups, cpg).sum(-1).repeat_interleave(cpg, -1)[:, None]
+            for v in (dt_nc, ds_nc))
+    dx = inv_c * (gy * s - (p + xhat * q) / count)
+    return dx.to(x.dtype).reshape(x.shape), ds_nc.sum(0), dt_nc.sum(0)
 
 
+@functools.cache
 def _lib():
     lib = _build.load("gn_relu")
-    if lib.gn_relu_bf16.argtypes is None:
-        i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.gn_relu_bf16.argtypes = [ptr] * 5 + [i32, i64, i32, i32, i64, i32, i64, i32, ptr]
-        lib.gn_relu_bf16.restype = i32
-        lib.gn_relu_error_string.argtypes = [i32]
-        lib.gn_relu_error_string.restype = ctypes.c_char_p
+    i64, i32, ptr, f32 = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.gn_relu_fwd_bf16.argtypes = ([ptr] * 6 + [i32, i64, i32, i32, f32, i32, i64, i32, i64,
+                                                  i32, i64, ptr])
+    lib.gn_relu_fwd_bf16.restype = i32
+    lib.gn_relu_bwd_bf16.argtypes = ([ptr] * 8 + [i32, i64, i32, i32, i32, i64, i32, i64, i32,
+                                                  i64, ptr])
+    lib.gn_relu_bwd_bf16.restype = i32
+    lib.gn_relu_limits.argtypes = [ctypes.POINTER(i32)] * 3
+    lib.gn_relu_limits.restype = i32
+    lib.gn_relu_error_string.argtypes = [i32]
+    lib.gn_relu_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            groups: int) -> torch.Tensor:
-    """The CUDA kernel: statistics, moments and normalize launches from one
-    call, with the partials and moments in one f32 workspace."""
-    b, c = x.shape[0], x.shape[-1]
-    if x.dtype != torch.bfloat16 or c % 8 or c > 2048:
-        raise ValueError(f"gn_relu kernel: x must be bf16 with C a multiple of 8 "
-                         f"and <= 2048, got {x.dtype} C={c}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("gn_relu kernel: x must be contiguous and 16-byte aligned")
-    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
-    s = x.numel() // (b * c)
-    v = c // 8
-    s_rows = -(-STATS_VECS // v)
-    s_blk = -(-s // s_rows)
-    n_rows = -(-NORM_VECS // v)
-    n_blk = -(-s // n_rows)
-    workspace = torch.empty(b * (s_blk + 1) * 2 * c, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.gn_relu_bf16(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                               workspace.data_ptr(), b, s, c, groups, s_rows, s_blk, n_rows,
-                               n_blk, torch.cuda.current_stream().cuda_stream)
+def _raise_on(err: int, what: str) -> None:
     if err:
-        raise RuntimeError(f"gn_relu launch failed: {lib.gn_relu_error_string(err).decode()} "
-                           f"({err})")
+        raise RuntimeError(f"{what} failed: {_lib().gn_relu_error_string(err).decode()} ({err})")
+
+
+class Limits(NamedTuple):
+    max_cluster: int     # blocks of the largest cluster at full shared memory
+    smem: int            # shared memory bytes per block
+    stats_clusters: tuple  # co-resident clusters of STATS_CLUSTER blocks: fwd, bwd, fold
+
+
+@functools.cache
+def limits(device_index: int) -> Limits:
+    """What the card schedules, from the CUDA occupancy queries."""
+    mc, smem, stats = ctypes.c_int(0), ctypes.c_int(0), (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        _raise_on(_lib().gn_relu_limits(ctypes.byref(mc), ctypes.byref(smem), stats),
+                  "gn_relu_limits")
+    return Limits(mc.value, smem.value, tuple(stats))
+
+
+def stats_plan(b: int, s: int, c: int, clusters: int):
+    """A statistics launch's (rows per block, blocks per sample): one wave of
+    the card's co-resident clusters of STATS_CLUSTER blocks (a cluster more
+    would wait for a second wave) shared among the B samples, with at least
+    BLOCK_VECS[0] 16-byte vectors per block."""
+    per_sample = STATS_CLUSTER * max(1, clusters // b)
+    rows = max(-(-BLOCK_VECS[0] // (c // 8)), -(-s // per_sample))
+    return rows, -(-s // rows)
+
+
+def cluster_plan(b: int, s: int, c: int, backward: bool, max_cluster: int, smem: int):
+    """The cluster route's (blocks per sample, rows per block, shared memory
+    bytes), or None where a sample (backward: all B samples, x and dy) does
+    not fit in one cluster's shared memory. Blocks per sample: the fewest
+    that hold it, raised towards CLUSTER_BLOCK_VECS vectors per block (more
+    SMs at a small sample) as far as the cluster allows."""
+    overhead = SCRATCH_BYTES[backward] + 16 * c
+    tensors = 2 if backward else 1
+    cap = (smem - overhead) // (2 * tensors * c)
+    if cap < 1:
+        return None
+    most = max_cluster // (b if backward else 1)
+    m = -(-s // cap)
+    if m > most:
+        return None
+    m = max(m, min(most, -(-s * (c // 8) // CLUSTER_BLOCK_VECS)))
+    rows = -(-s // m)
+    m = -(-s // rows)
+    return m, rows, rows * c * 2 * tensors + overhead
+
+
+def grid_plan(numel: int, s: int, c: int):
+    """The elementwise launch's (rows per block, blocks per sample): about 4
+    blocks per SM, within BLOCK_VECS 16-byte vectors per block."""
+    lo, hi = BLOCK_VECS
+    rows = -(-min(hi, max(lo, numel // 8 // BLOCKS)) // (c // 8))
+    return rows, -(-s // rows)
+
+
+def _check_kernel_input(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    c = t.shape[-1]
+    if t.device.type != "cuda":
+        raise ValueError(f"gn_relu kernel: no kernel for device {t.device}")
+    if t.dtype != torch.bfloat16 or c % 8 or c > 2048 or t.shape != like.shape:
+        raise ValueError(f"gn_relu kernel: {name} must be bf16 of x's shape with C a multiple of "
+                         f"8 and <= 2048, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"gn_relu kernel: {name} must be contiguous and 16-byte aligned")
+
+
+def _route(x: torch.Tensor, backward: bool, path):
+    if path not in (None, *PATHS):
+        raise ValueError(f"gn_relu path must be one of {PATHS} or None, got {path!r}")
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    plan = None
+    lim = limits(x.device.index)
+    if path != "grid":
+        plan = cluster_plan(b, s, c, backward, lim.max_cluster, lim.smem)
+        if plan is None and path == "cluster":
+            raise ValueError(f"gn_relu kernel: {tuple(x.shape)} does not fit one cluster")
+    return b, s, c, plan, lim.stats_clusters[int(backward)]
+
+
+def gn_relu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                    path=None):
+    """The forward kernel on a CUDA tensor: (y, stats (B, 2, groups) f32).
+    path: 'cluster', 'grid' or None (cluster where it fits)."""
+    _check_kernel_input("x", x, x)
+    _check_groups(x, groups)
+    b, s, c, plan, clusters = _route(x, False, path)
+    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    out = torch.empty_like(x)
+    stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
+    if plan is not None:
+        m, rows, smem = plan
+        nblk = norm_rows = norm_nblk = 0
+        workspace = stats  # unused by the cluster route
+    else:
+        m, smem = 0, 0
+        rows, nblk = stats_plan(b, s, c, clusters)
+        norm_rows, norm_nblk = grid_plan(x.numel(), s, c)
+        workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_relu_fwd_bf16(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            workspace.data_ptr(), b, s, c, groups, EPS, m, rows, nblk, norm_rows, norm_nblk, smem,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_relu forward launch")
     launches[(c, groups, b, *x.shape[1:-1])] += 1
-    return out
+    return out, stats
+
+
+def gn_relu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     stats: torch.Tensor, groups: int, path=None):
+    """The backward kernel on CUDA tensors: (dx bf16, ds, dt f32 (C,)).
+    path: 'cluster', 'grid' or None (cluster where it fits)."""
+    _check_kernel_input("x", x, x)
+    _check_kernel_input("dy", dy, x)
+    _check_groups(x, groups)
+    b, s, c, plan, clusters = _route(x, True, path)
+    if stats.shape != (b, 2, groups) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError(f"gn_relu backward: stats must be contiguous f32 {(b, 2, groups)}, got "
+                         f"{stats.dtype} {tuple(stats.shape)}")
+    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    dx = torch.empty_like(x)
+    dsdt = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    if plan is not None:
+        m, rows, smem = plan
+        nblk = dx_rows = dx_nblk = 0
+        workspace = dsdt  # unused by the cluster route
+    else:
+        m, smem = 0, 0
+        rows, nblk = stats_plan(b, s, c, clusters)
+        dx_rows, dx_nblk = grid_plan(x.numel(), s, c)
+        workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_relu_bwd_bf16(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dx.data_ptr(), dsdt.data_ptr(), workspace.data_ptr(), b, s, c, groups, m, rows, nblk,
+            dx_rows, dx_nblk, smem, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_relu backward launch")
+    bwd_launches[(c, groups, b, *x.shape[1:-1])] += 1
+    return dx, dsdt[0], dsdt[1]
+
+
+def _forward(x, scale, bias, groups, kernel: bool):
+    if kernel:
+        return gn_relu_forward(x, scale, bias, groups)
+    return _reference(x, scale, bias, groups)
 
 
 class _GroupNormReLU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, impl):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.groups = groups
-        if impl == "plain" or x.device.type == "cpu":
-            return group_norm_relu_reference(x, scale, bias, groups)
-        if x.device.type != "cuda":
-            raise ValueError(f"gn_relu: no kernel for device {x.device}")
-        return _kernel(x, scale, bias, groups)
+    def forward(ctx, x, scale, bias, groups, kernel):
+        y, stats = _forward(x, scale, bias, groups, kernel)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.groups, ctx.kernel = groups, kernel
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            xs, ss, bs = (t.detach().requires_grad_(need)
-                          for t, need in zip((x, scale, bias), ctx.needs_input_grad[:3]))
-            y = torch.relu(group_norm(xs, ss, bs, ctx.groups, EPS))
-            inputs = [t for t in (xs, ss, bs) if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, inputs, g.to(y.dtype)))
-        return (*(next(grads) if need else None for need in ctx.needs_input_grad[:3]),
-                None, None)
+        x, scale, bias, stats = ctx.saved_tensors
+        if ctx.kernel:
+            dx, ds, dt = gn_relu_backward(x, g.contiguous(), scale, bias, stats, ctx.groups)
+        else:
+            dx, ds, dt = group_norm_relu_backward_reference(x, g, scale, bias, stats, ctx.groups)
+        return dx, ds.to(scale.dtype), dt.to(bias.dtype), None, None
 
 
 def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                     impl: str = "kernel") -> torch.Tensor:
     """relu(GroupNorm(x)) over an N...C tensor (contiguous channel groups,
     eps 1e-5), differentiable in x, scale and bias. impl='kernel' launches
-    the CUDA kernel for a CUDA tensor (bf16, C a multiple of 8) and runs the
-    plain version for a CPU tensor; impl='plain' runs the plain version."""
+    the CUDA kernels for a CUDA tensor (bf16, C a multiple of 8) and runs the
+    plain versions for a CPU tensor; impl='plain' runs the plain versions."""
     if impl not in IMPLS:
         raise ValueError(f"gn_relu impl must be one of {IMPLS}, got {impl!r}")
     _check_groups(x, groups)
-    return _GroupNormReLU.apply(x.contiguous(), scale, bias, groups, impl)
+    x = x.contiguous()
+    kernel = impl == "kernel" and x.device.type != "cpu"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _GroupNormReLU.apply(x, scale, bias, groups, kernel)
+    return _forward(x, scale, bias, groups, kernel)[0]

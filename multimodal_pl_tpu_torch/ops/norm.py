@@ -27,11 +27,6 @@ import torch
 from multimodal_pl_tpu_torch.ops import _build
 
 FOLD_IMPLS = ("kernel", "plain")
-# 16-byte vectors per statistics block: about 4 blocks per SM of an H100
-# (132 SMs), within these limits: fewer, larger blocks leave fewer partial
-# moments to merge, more blocks fill the card at small shapes
-FOLD_BLOCK_VECS = (2048, 65536)
-FOLD_BLOCKS = 4 * 132
 
 fold_launches: collections.Counter = collections.Counter()
 
@@ -113,10 +108,10 @@ def _fold_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, group
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("group_norm_fold kernel: x must be contiguous and 16-byte aligned")
     scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    from multimodal_pl_tpu_torch.ops.gn_relu import limits, stats_plan
+
     s = x.numel() // (b * c)
-    lo, hi = FOLD_BLOCK_VECS
-    rows_per_block = -(-min(hi, max(lo, x.numel() // 8 // FOLD_BLOCKS)) // (c // 8))
-    nblk = -(-s // rows_per_block)
+    rows_per_block, nblk = stats_plan(b, s, c, limits(x.device.index).stats_clusters[2])
     rows = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
     lib = _fold_lib()

@@ -23,7 +23,9 @@ CATEGORIES = (
     ("conv3x3_gn kernel", ("conv3x3_gn_kernel",)),
     ("conv3x3_gn split-K reduction", ("splitk_reduce",)),
     ("GroupNorm fold statistics kernel", ("gn_fold_",)),
-    ("gn_relu kernel", ("gn_stats_kernel", "gn_moments_kernel", "gn_norm_relu")),
+    ("gn_relu forward kernel", ("gn_relu_stats_kernel", "gn_relu_norm_kernel",
+                                "gn_relu_cluster_kernel")),
+    ("gn_relu backward kernel", ("gn_bwd_",)),
     ("library conv (cuDNN: stem, stride 2, 1x1, dgrad, wgrad)",
      ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop")),
     ("GEMM", ("gemm", "cutlass", "cublas", "sm90_xmma")),

@@ -1,5 +1,5 @@
-"""The CUDA kernels (conv3x3_gn, conv3x3_train, gn_relu, the GroupNorm fold
-statistics) against their plain PyTorch versions on the GPU, and the model's
+"""The CUDA kernels (conv3x3_gn, conv3x3_train, the gn_relu forward and
+backward on both routes, the GroupNorm fold statistics) against their plain PyTorch versions on the GPU, and the model's
 gradients on the card.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
@@ -146,9 +146,12 @@ def test_conv3x3_gn_raises_under_autograd(cuda_device):
 @pytest.mark.parametrize("shape,c,groups", [((1, 8, 24, 40), 32, 16), ((2, 5, 9, 13), 24, 4),
                                             ((2, 1, 1, 1), 192, 12)])
 def test_gn_relu_kernel_matches_plain(cuda_device, shape, c, groups):
-    """Forward: the same one-pass formula; the statistics' summation order
-    differs, so max|k - p| <= 1e-2 * max|p| (bf16 output rounding). The
-    backward is the same recompute on both sides."""
+    """Through autograd: the forward and backward kernels against the plain
+    versions (impl='plain' on the card). Forward max|k - p| <= 1e-2 * max|p|
+    (bf16 output rounding; the statistics' summation order differs); dx by
+    the same rule; ds, dt by relative norm <= 1e-2 (a pre-activation within
+    f32 rounding of 0 may take the other side of the ReLU and move one term
+    of a sum)."""
     g = torch.Generator(device="cpu").manual_seed(1)
     x = (torch.randn((*shape, c), generator=g) * 2 + 0.5).to(cuda_device, torch.bfloat16)
     sc = torch.randn(c, generator=g).to(cuda_device).requires_grad_()
@@ -161,9 +164,97 @@ def test_gn_relu_kernel_matches_plain(cuda_device, shape, c, groups):
     assert (k.float() - p.float()).abs().max().item() <= 1e-2 * p.float().abs().max().item()
     r = torch.randn(k.shape, generator=g).to(cuda_device, torch.bfloat16)
     gk = torch.autograd.grad(k, (x, sc, bi), r)
+    assert sum(gn_relu.bwd_launches.values()) == 1
     gp = torch.autograd.grad(p, (x, sc, bi), r)
-    for a, b in zip(gk, gp):
-        assert torch.equal(a, b)
+    assert gk[0].dtype == torch.bfloat16 and gk[1].dtype == gk[2].dtype == torch.float32
+    assert (gk[0].float() - gp[0].float()).abs().max() <= 1e-2 * gp[0].float().abs().max()
+    for a, b in zip(gk[1:], gp[1:]):
+        assert _rel(a, b) <= 1e-2
+
+
+# (shape (B, D, H, W), C, groups, route): C = 24, 192 and 256, B = 11; each
+# route forced at small shapes, and the wrapper's choice (None) at shapes
+# where a sample fits a cluster for the forward but not for the backward, or
+# exceeds it for both
+GN_CASES = [((2, 4, 12, 12), 24, 4, "cluster"), ((2, 4, 12, 12), 24, 4, "grid"),
+            ((11, 8, 24, 24), 24, 4, "grid"), ((11, 2, 6, 6), 24, 6, None),
+            ((2, 2, 6, 6), 192, 12, "cluster"), ((2, 2, 6, 6), 192, 12, "grid"),
+            ((1, 4, 12, 12), 256, 16, "cluster"), ((4, 8, 24, 24), 256, 16, None),
+            ((1, 16, 48, 48), 128, 16, "grid"), ((1, 32, 96, 96), 32, 16, None)]
+
+
+def _gn_inputs(shape, c, mean=0.5):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = (torch.randn((*shape, c), generator=g) * 2 + mean).to("cuda", torch.bfloat16)
+    sc = (1 + 0.3 * torch.randn(c, generator=g)).to("cuda")
+    bi = (0.3 * torch.randn(c, generator=g)).to("cuda")
+    dy = torch.randn((*shape, c), generator=g).to("cuda", torch.bfloat16)
+    return x, sc, bi, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,groups,path", GN_CASES)
+def test_gn_relu_forward_kernel_routes(cuda_device, shape, c, groups, path):
+    """Kernel A on the given route against its plain version: y within
+    1e-2 * max|y| (bf16 output rounding), the groups' mean and inv within
+    rel 1e-5 (f32 summation order); the same bits on a second call."""
+    x, sc, bi, _ = _gn_inputs(shape, c)
+    y, stats = gn_relu.gn_relu_forward(x, sc, bi, groups, path=path)
+    torch.cuda.synchronize()
+    yp, stats_p = gn_relu._reference(x, sc, bi, groups)
+    assert (y.float() - yp.float()).abs().max() <= 1e-2 * yp.float().abs().max()
+    assert ((stats - stats_p).abs().amax((0, 2)) <= 1e-5 * stats_p.abs().amax((0, 2))).all()
+    y2, stats2 = gn_relu.gn_relu_forward(x, sc, bi, groups, path=path)
+    assert torch.equal(y, y2) and torch.equal(stats, stats2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,groups,path", GN_CASES)
+def test_gn_relu_backward_kernel_routes(cuda_device, shape, c, groups, path):
+    """Kernel B on the given route against its plain version on the same
+    inputs and the same forward statistics: dx within 1e-2 * max|dx| (bf16
+    output rounding), ds and dt by relative norm <= 1e-3 (f32 summation
+    order); the same bits on a second call."""
+    x, sc, bi, dy = _gn_inputs(shape, c)
+    _, stats = gn_relu.gn_relu_forward(x, sc, bi, groups)
+    gn_relu.reset_launches()
+    dx, ds, dt = gn_relu.gn_relu_backward(x, dy, sc, bi, stats, groups, path=path)
+    torch.cuda.synchronize()
+    assert sum(gn_relu.bwd_launches.values()) == 1
+    dxp, dsp, dtp = gn_relu.group_norm_relu_backward_reference(x, dy, sc, bi, stats, groups)
+    assert (dx.float() - dxp.float()).abs().max() <= 1e-2 * dxp.float().abs().max()
+    assert _rel(ds, dsp) <= 1e-3 and _rel(dt, dtp) <= 1e-3
+    again = gn_relu.gn_relu_backward(x, dy, sc, bi, stats, groups, path=path)
+    assert all(torch.equal(a, b) for a, b in zip((dx, ds, dt), again))
+
+
+@pytest.mark.cuda
+def test_gn_relu_forward_two_pass_at_large_mean(cuda_device):
+    """mean 100, std 2: the kernel's shifted statistics match the plain
+    two-pass ones (rel 1e-5) on both routes, where one-pass moments would
+    cancel."""
+    x, sc, bi, _ = _gn_inputs((2, 4, 12, 12), 64, mean=100.0)
+    _, stats_p = gn_relu._reference(x, sc, bi, 16)
+    for path in gn_relu.PATHS:
+        _, stats = gn_relu.gn_relu_forward(x, sc, bi, 16, path=path)
+        assert ((stats - stats_p).abs().amax((0, 2)) <= 1e-5 * stats_p.abs().amax((0, 2))).all()
+
+
+@pytest.mark.cuda
+def test_gn_relu_kernels_raise_on_bad_input(cuda_device):
+    """An f32 input, an f32 incoming gradient or C not a multiple of 8 raise
+    instead of launching."""
+    x, sc, bi, dy = _gn_inputs((1, 2, 4, 4), 16)
+    _, stats = gn_relu.gn_relu_forward(x, sc, bi, 4)
+    with pytest.raises(ValueError, match="bf16"):
+        gn_relu.gn_relu_forward(x.float(), sc, bi, 4)
+    with pytest.raises(ValueError, match="bf16"):
+        gn_relu.gn_relu_backward(x, dy.float(), sc, bi, stats, 4)
+    x12 = torch.randn((1, 2, 4, 4, 12), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gn_relu.gn_relu_forward(x12, sc[:12], bi[:12], 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gn_relu.gn_relu_backward(x12, x12, sc[:12], bi[:12], stats[:, :, :4], 4)
 
 
 @pytest.mark.cuda

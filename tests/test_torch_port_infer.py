@@ -54,7 +54,8 @@ def _toy_apply(tiles):
 def test_batched_matches_naive_loop(rng):
     vol = rng.standard_normal((24, 40, 40)).astype(np.float32)
     tile = (16, 24, 24)
-    got = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=3, bucket=(8, 8, 8))(vol)
+    got = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=3, bucket=(8, 8, 8),
+                                 device="cpu")(vol)
     want = predict_sliding_naive(_toy_apply, vol, tile, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
@@ -62,8 +63,10 @@ def test_batched_matches_naive_loop(rng):
 def test_bucket_padding_is_exact(rng):
     vol = rng.standard_normal((20, 30, 30)).astype(np.float32)
     tile = (16, 24, 24)
-    a = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(4, 4, 4))(vol)
-    b = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=5, bucket=(16, 16, 16))(vol)
+    a = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(4, 4, 4),
+                               device="cpu")(vol)
+    b = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=5, bucket=(16, 16, 16),
+                               device="cpu")(vol)
     assert a.shape == b.shape == (20, 30, 30, 3)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
 
@@ -71,16 +74,18 @@ def test_bucket_padding_is_exact(rng):
 def test_argmax_output_matches_logits_argmax(rng):
     vol = rng.standard_normal((10, 9, 9)).astype(np.float32)
     tile = (4, 4, 4)
-    a = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(4, 4, 4))(vol)
+    a = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(4, 4, 4),
+                               device="cpu")(vol)
     b = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(4, 4, 4),
-                               output="argmax")(vol)
+                               output="argmax", device="cpu")(vol)
     assert b.dtype == torch.uint8 and b.shape == (10, 9, 9)
     assert torch.equal(a.argmax(-1).to(torch.uint8), b)
 
 
 def test_predict_iter_matches_call(rng):
     tile = (16, 24, 24)
-    pred = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(8, 8, 8))
+    pred = SlidingWindowPredictor(_toy_apply, tile, 3, window_batch=2, bucket=(8, 8, 8),
+                                  device="cpu")
     vols = [rng.standard_normal(s).astype(np.float32)
             for s in [(24, 40, 40), (20, 30, 30), (24, 40, 40)]]
     got = list(pred.predict_iter(vols))
@@ -92,8 +97,8 @@ def test_predict_iter_matches_call(rng):
 def test_tta_symmetric_toy_equals_plain(rng):
     vol = rng.standard_normal((16, 24, 24)).astype(np.float32)
     tile = (16, 24, 24)
-    plain = SlidingWindowPredictor(_toy_apply, tile, 3)(vol)
-    tta = SlidingWindowPredictor(_toy_apply, tile, 3, tta=True)(vol)
+    plain = SlidingWindowPredictor(_toy_apply, tile, 3, device="cpu")(vol)
+    tta = SlidingWindowPredictor(_toy_apply, tile, 3, tta=True, device="cpu")(vol)
     np.testing.assert_allclose(plain.numpy(), tta.numpy(), rtol=1e-5, atol=1e-5)
 
 
@@ -105,8 +110,17 @@ def test_bf16_compute_casts_tiles(rng):
         seen.append(tiles.dtype)
         return _toy_apply(tiles)
 
-    SlidingWindowPredictor(net, (16, 24, 24), 3, compute_dtype=torch.bfloat16)(vol)
+    SlidingWindowPredictor(net, (16, 24, 24), 3, compute_dtype=torch.bfloat16, device="cpu")(vol)
     assert seen and set(seen) == {torch.bfloat16}
+
+
+def test_predictor_defaults_to_the_gpu(monkeypatch):
+    """Without ``device`` the predictor runs on the GPU: on a host without
+    CUDA it raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlidingWindowPredictor(_toy_apply, (4, 4, 4), 3)
+    assert SlidingWindowPredictor(_toy_apply, (4, 4, 4), 3, device="cpu").device.type == "cpu"
 
 
 def test_organ_scores_equal_jax(rng):

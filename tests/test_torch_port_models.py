@@ -22,6 +22,7 @@ from multimodal_pl_tpu.models.eam import EAM as JEAM
 from multimodal_pl_tpu.models.eam import attn_to_map as jattn_to_map
 from multimodal_pl_tpu_torch.convert import load_feam_state_dict, state_dict_from_jax
 from multimodal_pl_tpu_torch.models import TOKEN_DIMS, UNet3DFEAM, init_class_tokens
+from multimodal_pl_tpu_torch.models import blocks
 from multimodal_pl_tpu_torch.models.blocks import NoBottleneck, ResStage
 from multimodal_pl_tpu_torch.models.eam import EAM, attn_to_map
 
@@ -137,3 +138,29 @@ def test_unet3d_feam_matches_jax(jax_params, deep_up):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-4 * rms)
     assert torch.equal(logits_only, logits)
     assert all(torch.equal(tokens_out[k], tokens[k]) for k in tokens)
+
+
+def test_no_grad_forward_routes_every_gn_relu(jax_params, monkeypatch):
+    """Without autograd, every GroupNorm -> ReLU that does not fold into a
+    fused conv (the stride-2 blocks' gn1, gn2 and projection, the decoder
+    projections, fusionConv, precls_conv: 17 per forward) goes through
+    ``group_norm_relu``, and the logits equal the JAX forward's at the
+    parity tolerance."""
+    params, jtokens = jax_params
+    x = np.random.default_rng(8).standard_normal((2, D, H, W, 1)).astype(np.float32)
+    jmodel = JUNet3DFEAM(num_classes=NC, weight_std=True, s2d=False, bd=False)
+    want = jmodel.apply(params, jnp.asarray(x), jtokens)[0]
+    model = UNet3DFEAM(num_classes=NC)
+    load_feam_state_dict(model, state_dict_from_jax(params, jtokens))
+    calls = []
+
+    def counted(x, *args):
+        calls.append(tuple(x.shape))
+        return gn_relu(x, *args)
+
+    gn_relu = blocks.group_norm_relu
+    monkeypatch.setattr(blocks, "group_norm_relu", counted)
+    with torch.no_grad():
+        got = model(_t(x), aux=False)
+    assert len(calls) == 17
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

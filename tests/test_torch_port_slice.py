@@ -49,11 +49,12 @@ def test_slice_matches_jax(models, tta):
     jfwd, fwd = models
     vol = np.random.default_rng(11).standard_normal(VOL).astype(np.float32)
     want = np.asarray(JPredictor(jfwd, TILE, NC, window_batch=2, tta=tta, bucket=BUCKET)(vol))
-    pred = SlidingWindowPredictor(fwd, TILE, NC, window_batch=2, tta=tta, bucket=BUCKET)
+    pred = SlidingWindowPredictor(fwd, TILE, NC, window_batch=2, tta=tta, bucket=BUCKET,
+                                  device="cpu")
     got = pred(vol).numpy()
     assert got.shape == want.shape == (*VOL, NC)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
     labels = SlidingWindowPredictor(fwd, TILE, NC, window_batch=2, tta=tta, bucket=BUCKET,
-                                    output="argmax")(vol).numpy()
+                                    output="argmax", device="cpu")(vol).numpy()
     assert labels.dtype == np.uint8
     assert np.mean(labels == want.argmax(-1)) >= 0.999
