@@ -39,15 +39,36 @@ Phases, each of which raises (non-zero exit) on any failed check:
    autograd of F.group_norm + ReLU); conv3x3_train forward and dx at every
    stride-1 conv (dw, the library's, by relative Frobenius norm);
    conv3x3_gn at the refiner's gradient-free shapes (B = 11); kernel ms,
-   plain ms, TFLOP/s;
+   plain ms, TFLOP/s; then the same at every shape of a B = 3 step that
+   B = 1 does not launch (the segmenter's at batch 3);
 7. the training path: the train step at the full geometry from one seeded
    state and batch, kernel vs plain (total loss, segmenter gradients), then
    3 kernel steps: finite losses, moving parameters, finite tokens, the exact
    calls per step of every kernel (the fold's 10, gn_relu's 79 forward and
    62 backward included), ms/step, peak memory;
 8. the training entry point: mpl-train-torch's main() on synthetic cases at
-   64 x 192 x 192 for 2 epochs with validation after each (through the
-   serving kernel), a checkpoint, and a resumed epoch.
+   64 x 192 x 192 on host batches (--device_data false) for 2 epochs with
+   validation after each (through the serving kernel), a checkpoint, and a
+   resumed epoch;
+9. the production step (run_amos_atlas_final.sh: B = 3, 64 x 192 x 192,
+   bf16, the StepConfig defaults) from a state one step past the init:
+   with remat vs without (total loss rel <= 1e-6; the gradients, worst
+   leaf and whole tree, within 2 x the distance between two runs of the
+   step without remat, + 1e-3: the upsample's gradient adds with atomics),
+   kernel vs plain bf16 (phase 7's limits); then 3 + 5 steps
+   each without and with remat: the exact calls per step of every kernel
+   (remat adds the recompute of the 22 segmenter stage convs and 33 stage
+   GroupNorms), ms/step, peak memory, logical-FLOP MFU
+   (utils/flops.train_step_flops against 989 TFLOP/s);
+10. the device data pipeline and the production entry point on 16
+   synthetic cases at the AMOS grid (256 x 256 x 128; made by a worker
+   process while phases 1-9 run): DeviceDataPipeline batches on the card
+   equal the host path's crops at the same corners, its intensity recipe
+   at fixed parameters is within 1 bf16 ulp of numpy/scipy f32; then
+   mpl-train-torch --batch_size 3 --device_data true --remat true for 2
+   epochs with validation after each, a checkpoint and a resumed epoch
+   (every step's train-conv and gn_relu-backward calls as in phase 9), and
+   the same epochs with --device_data false: patches/s of both.
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
@@ -55,20 +76,21 @@ gn_relu call one where a sample fits a thread-block cluster, else two).
 Kernel, plain and library times are device times per call (CUDA graph
 replays); bounds are max(FLOP / 989e12, bytes / 3.35e12) per call (H100 SXM
 dense bf16 and HBM3 peaks), with every input read once and every output
-written once. Prints the kernels' JSON line, the card line, and as the last line
-{"ok": true, "device": {...}}. Weights are random from fixed seeds. Details
+written once. Prints each phase's seconds, the kernels' JSON line, the card line, and as the
+last line {"ok": true, "device": {...}}. Weights are random from fixed seeds. Details
 go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -106,6 +128,20 @@ PATCH = (64, 192, 192)      # the training patch (StepConfig / cli/train.py defa
 GRAD_REL_LIMIT = 0.2
 LEAF_RATIO = 1.4
 LEAF_FLOOR = 1e-2
+PROD_B = 3                  # run_amos_atlas_final.sh's --batch_size
+# remat vs no remat on the kernels: the forward is deterministic (the loss
+# agrees to REMAT_LOSS_REL), the backward is not: the trilinear upsample's
+# and the nearest resize's gradients add with atomics, and bf16 carries a
+# reordered sum far (the same step run twice differs by ~1e-2 on some
+# leaves, H100 runs). So the remat step may be no farther from the step
+# than a second run of the step is: REMAT_NOISE times that distance plus
+# REMAT_LEAF_REL, for the worst leaf and for the whole tree. A recompute on
+# wrong weights moves the gradients by O(1).
+REMAT_LOSS_REL = 1e-6
+REMAT_NOISE = 2.0
+REMAT_LEAF_REL = 1e-3
+AMOS_GRID = (256, 256, 128)  # (H, W, D) of an AMOS case after preprocessing
+AMOS_CASES = (14, 2)         # synthetic CT, MRI cases: 11 train (3 steps of B = 3), 1 valid
 
 # (Cin, Cout, (D, H, W), prologue, residual) of every conv3x3_gn call in one
 # forward of a 4 x 64 x 192 x 192 tile batch
@@ -292,19 +328,20 @@ def unet_shapes(dhw, widths, layers, group, fusion_groups, precls_groups):
     the second), the GN-ReLU fusion head, four one-block decoder stages, the
     GN-ReLU classifier head. Returns (train convs [(Cin, Cout, DHW)], GNs
     [(C, groups, DHW)], gradient-free convs [(Cin, Cout, DHW, prologue,
-    residual)], gradient-free gn_relu calls [(C, groups, DHW)]). Per block:
+    residual)], gradient-free gn_relu calls [(C, groups, DHW)], the GNs of
+    the stages alone (without the two heads')). Per block:
     GN1 (and the projection's GN) on the input, GN2 and conv2 on the output,
     conv1 through conv3x3_train at stride 1 and the library at stride 2;
     without grad, stride-1 convs are fused (conv2 adds an identity residual,
     the GNs fold into their prologues), a stride-2 block's GN1, GN2 and
     projection GN run gn_relu and its conv2 is prologue-off, and every
     projection and head runs gn_relu before its 1x1 conv."""
-    convs, gns, nograd, nograd_gns = [], [], [], []
+    convs, stage_gns, nograd, nograd_gns = [], [], [], []
 
     def block(cin, cout, d_in, stride):
         d_out = d_in if stride == 1 else _half(d_in)
         proj = stride != 1 or cin != cout
-        gns.extend([(cin, group, d_in), (cout, group, d_out)] + [(cin, group, d_in)] * proj)
+        stage_gns.extend([(cin, group, d_in), (cout, group, d_out)] + [(cin, group, d_in)] * proj)
         nograd_gns.extend([(cin, group, d_in)] * proj)
         if stride == 1:
             convs.extend([(cin, cout, d_out), (cout, cout, d_out)])
@@ -324,14 +361,14 @@ def unet_shapes(dhw, widths, layers, group, fusion_groups, precls_groups):
     chans = [widths[0]] + list(widths)
     for i in range(5):
         d.append(stage(chans[i], widths[i], layers[i], 1 if i == 0 else 2, d[-1]))
-    gns.append((widths[4], fusion_groups, d[5]))
+    heads = [(widths[4], fusion_groups, d[5])]
     nograd_gns.append((widths[4], fusion_groups, d[5]))
     for cin, cout, scale in ((widths[4], widths[2], d[4]), (widths[2], widths[1], d[3]),
                              (widths[1], widths[0], d[2]), (widths[0], widths[0], d[1])):
         stage(cin, cout, 1, 1, scale)
-    gns.append((widths[0], precls_groups, d[1]))
+    heads.append((widths[0], precls_groups, d[1]))
     nograd_gns.append((widths[0], precls_groups, d[1]))
-    return convs, gns, nograd, nograd_gns
+    return convs, stage_gns + heads, nograd, nograd_gns, stage_gns
 
 
 def serving_gn_keys():
@@ -343,38 +380,49 @@ def serving_gn_keys():
     return Counter((c, groups, WINDOW_BATCH, *dhw) for c, groups, dhw in sites)
 
 
-def training_shapes(cfg):
+def training_shapes(cfg, batch: int = 1):
     """-> ({kernel key: launches per train step} for conv3x3 (train fwd/dx,
     fused, prologue-off), the same for gn_relu under autograd (one forward
     and one backward call each), gn_relu calls without autograd (the
-    refiner's gradient-free pass)), from the architecture of ``cfg``."""
+    refiner's gradient-free pass), and the forward calls that ``cfg.remat``
+    adds for conv3x3 (train fwd) and gn_relu), from the architecture of
+    ``cfg``. The segmenter runs at ``batch``; the refiner takes sample 0's
+    organ rows whatever the batch. Under remat the backward recomputes
+    every segmenter stage (the encoder's five, the decoder's four): each
+    stride-1 conv's and each stage GroupNorm's forward launches once more;
+    the fusion and classifier heads are not recomputed."""
     from collections import Counter
 
     from multimodal_pl_tpu_torch.ops import conv3x3
 
     b, f, k = cfg.base, cfg.refiner_filter, cfg.refine_grad_organs
     rest = cfg.num_classes - 1 - k
-    seg_convs, seg_gns, _, _ = unet_shapes(PATCH, [b, 2 * b, 4 * b, 8 * b, 8 * b], cfg.layers,
-                                           16, 16, 16)
+    seg_convs, seg_gns, _, _, seg_stage_gns = unet_shapes(
+        PATCH, [b, 2 * b, 4 * b, 8 * b, 8 * b], cfg.layers, 16, 16, 16)
     half = _half(PATCH)  # the refiner runs at half resolution after its stride-2 stem
-    ref_convs, ref_gns, ref_nograd, ref_nograd_gns = unet_shapes(
+    ref_convs, ref_gns, ref_nograd, ref_nograd_gns, _ = unet_shapes(
         half, [f, 2 * f, 4 * f, 8 * f, 8 * f], (1, 1, 1, 1, 1), 4, f // 2, f // 4)
     ref_convs.append((f, f, half))                       # the refiner's conv1
     ref_nograd.append((f, f, half, False, False))
     conv = Counter()
-    for batch, convs in ((1, seg_convs), (k, ref_convs)):
+    for n, convs in ((batch, seg_convs), (k, ref_convs)):
         for cin, cout, (d, h, w) in convs:
-            conv[(conv3x3.TRAIN_FWD, cin, cout, batch, d, h, w, False)] += 1
-            conv[(conv3x3.TRAIN_DX, cout, cin, batch, d, h, w, False)] += 1
+            conv[(conv3x3.TRAIN_FWD, cin, cout, n, d, h, w, False)] += 1
+            conv[(conv3x3.TRAIN_DX, cout, cin, n, d, h, w, False)] += 1
     for cin, cout, (d, h, w), prologue, res in ref_nograd:
         conv[(conv3x3.FUSED if prologue else conv3x3.PROLOGUE_OFF, cin, cout, rest, d, h, w,
               res)] += 1
     gn = Counter()
-    for batch, gns in ((1, seg_gns), (k, ref_gns)):
+    for n, gns in ((batch, seg_gns), (k, ref_gns)):
         for c, groups, dhw in gns:
-            gn[(c, groups, batch, *dhw)] += 1
+            gn[(c, groups, n, *dhw)] += 1
     gn_nograd = Counter((c, groups, rest, *dhw) for c, groups, dhw in ref_nograd_gns)
-    return conv, gn, gn_nograd
+    conv_remat, gn_remat = Counter(), Counter()
+    if cfg.remat:
+        conv_remat.update((conv3x3.TRAIN_FWD, cin, cout, batch, *dhw, False)
+                          for cin, cout, dhw in seg_convs)
+        gn_remat.update((c, groups, batch, *dhw) for c, groups, dhw in seg_stage_gns)
+    return conv, gn, gn_nograd, conv_remat, gn_remat
 
 
 def _gn_library(x_cl, groups, sc, bi):
@@ -549,16 +597,17 @@ def phase_train_conv(dev, results, conv_keys):
     return table
 
 
-def train_batch(dev, cfg):
-    """A seeded batch at the training patch, as the loop ships it: bf16
-    image and atlas, uint8 labels; organ 5 is supervised and in the labeled
-    modality, so the refiner's gradient pass has a row."""
+def train_batch(dev, cfg, batch=1):
+    """A seeded batch of ``batch`` samples at the training patch, as the
+    loop ships it: bf16 image and atlas, uint8 labels; organ 5 is
+    supervised and in the labeled modality, so the refiner's gradient pass
+    has a row."""
     rng = np.random.default_rng(5)
     nc = cfg.num_classes
     sup = np.zeros(nc, np.float32)
     sup[5] = 1
-    host = {"image": rng.standard_normal((1, *PATCH, 1)).astype(np.float32),
-            "label": rng.integers(0, nc, (1, *PATCH)).astype(np.uint8),
+    host = {"image": rng.standard_normal((batch, *PATCH, 1)).astype(np.float32),
+            "label": rng.integers(0, nc, (batch, *PATCH)).astype(np.uint8),
             "catlas": rng.random((nc - 1, *PATCH)).astype(np.float32), "sup_mask": sup,
             "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)}
     from multimodal_pl_tpu_torch.train.loop import to_device
@@ -566,16 +615,112 @@ def train_batch(dev, cfg):
     return to_device(host, cfg, dev)
 
 
-def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_expected):
-    """Phase 7: the train step at the full geometry. Returns the kernel
-    calls of the 3 timed steps (conv3x3 keys, gn_relu forward and backward
-    keys, fold keys)."""
-    import dataclasses
+def make_step(dev, cfg):
+    """The train step of ``cfg`` on ``dev``, its modules' own parameters
+    overwritten with noise: the step runs on the state's parameters alone
+    (a recompute that read the modules' would go wrong visibly)."""
+    from multimodal_pl_tpu_torch.train.state import build_models
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    models = build_models(cfg)
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for m in models:
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=g))
+    return make_train_step(*(m.to(dev) for m in models), cfg)
+
+
+def step_grads(dev, variants, state, batch, wf):
+    """{name: (total loss, {'params.'/'rparams.' + leaf: f32 gradient})}
+    of one gradient step per StepConfig of ``variants``, freeing each
+    step's memory before the next."""
+    out = {}
+    for name, c in variants.items():
+        total, (gp, gr), _ = make_step(dev, c).grads(state, batch, wf)
+        out[name] = (float(total),
+                     {**{"params." + k: g.detach().float() for k, g in gp.items()},
+                      **{"rparams." + k: g.detach().float() for k, g in gr.items()}})
+        del total, gp, gr
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_tree(a, b, keys):
+    """Relative Frobenius norm of gradient trees a - b over ``keys``."""
+    x, y = (torch.cat([t[k].flatten() for k in keys]) for t in (a, b))
+    return ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+
+
+def run_steps(dev, step, state, batch, lr, wf, expected, n_check=3, n_time=5):
+    """n_check steps, each launching exactly ``expected`` kernel calls
+    ({'conv3x3', 'gn_relu', 'gn_relu_backward', 'fold'}: Counter), then
+    n_time more timed. Returns (the state after the checked steps, a record:
+    ms of every step, the timed steps' median, peak GiB over all of them,
+    metrics, the kernel calls of the checked steps)."""
     from collections import Counter
 
     from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm
-    from multimodal_pl_tpu_torch.train.state import StepConfig, build_models, create_train_state
-    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    counters = {"conv3x3": conv3x3.launches, "gn_relu": gn_relu.launches,
+                "gn_relu_backward": gn_relu.bwd_launches, "fold": norm.fold_launches}
+    totals = {k: Counter() for k in counters}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics = [], []
+    for _ in range(n_check):
+        conv3x3.reset_launches()
+        gn_relu.reset_launches()
+        norm.fold_launches.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, lr, wf)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, got in counters.items():
+            check(Counter(got) == expected[name],
+                  f"{name} calls per step {dict(got)} != {dict(expected[name])}")
+            totals[name].update(got)
+        metrics.append({k: float(v) for k, v in m.items()})
+    steady, timed = [], state
+    for _ in range(n_time):
+        t0 = time.perf_counter()
+        timed, _ = step(timed, batch, lr, wf)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del timed
+    for m in metrics:
+        check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+        check(m["grads_finite"] == 1.0 and m["disc_grads_finite"] == 1.0, f"guard fired: {m}")
+    return state, {"step_ms": step_ms, "steady_step_ms": steady,
+                   "steady_median_ms": float(np.median(steady)), "peak_gib": peak_gib,
+                   "metrics": metrics, "calls": totals}
+
+
+def step_expected(cfg, batch=1):
+    """Kernel calls of one train step of ``cfg`` at ``batch`` (run_steps'
+    ``expected``), from the architecture."""
+    conv, gn, gn_nograd, conv_remat, gn_remat = training_shapes(cfg, batch)
+    return {"conv3x3": conv + conv_remat, "gn_relu": gn + gn_nograd + gn_remat,
+            "gn_relu_backward": gn, "fold": fold_keys(conv, 4)}
+
+
+def mfu(batch, ms):
+    """Logical-FLOP MFU of one train step at ``batch`` taking ``ms``,
+    against the H100 SXM dense-bf16 peak."""
+    from multimodal_pl_tpu_torch.utils.flops import H100_BF16_PEAK, train_step_flops
+
+    return train_step_flops(PATCH, batch=batch)["total"] / (ms * 1e-3) / H100_BF16_PEAK
+
+
+def phase_step(dev, results):
+    """Phase 7: the train step at the full geometry, B = 1. Returns the
+    kernel calls of the 3 checked steps ({'conv3x3', 'gn_relu',
+    'gn_relu_backward', 'fold'}: Counter)."""
+    import dataclasses
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.train.state import StepConfig, create_train_state
 
     cfg = StepConfig(compute_dtype=torch.bfloat16)
     state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
@@ -583,28 +728,18 @@ def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_e
     lr = torch.tensor(5e-4, device=dev)
     wf = torch.tensor(0.05, device=dev)  # past the pretrain epochs: the consistency term runs
 
-    def make(c):
-        return make_train_step(*(m.to(dev) for m in build_models(c)), c)
-
     # kernel vs plain from one state and batch; the f32 plain step shows the
     # size of the bf16 gap itself
-    variants = {"kernel": cfg,
-                "plain": dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain"),
-                "plain_f32": dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain",
-                                                 compute_dtype=torch.float32)}
-    losses, grads = {}, {}
-    for name, c in variants.items():
-        total, (gp, gr), _ = make(c).grads(state, batch, wf)
-        losses[name] = float(total)
-        grads[name] = {**{"params." + k: g.detach().float() for k, g in gp.items()},
-                       **{"rparams." + k: g.detach().float() for k, g in gr.items()}}
-        del total, gp, gr
-        torch.cuda.empty_cache()
+    plain = dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain")
+    got = step_grads(dev, {"kernel": cfg, "plain": plain,
+                           "plain_f32": dataclasses.replace(plain, compute_dtype=torch.float32)},
+                     state, batch, wf)
+    losses = {name: v[0] for name, v in got.items()}
+    grads = {name: v[1] for name, v in got.items()}
     seg = [k for k in grads["plain"] if k.startswith("params.")]
 
     def rel(a, b, keys=seg):
-        x, y = (torch.cat([grads[v][k].flatten() for k in keys]) for v in (a, b))
-        return ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+        return rel_tree(grads[a], grads[b], keys)
 
     kf, pf = ({k: rel(a, "plain_f32", [k]) for k in grads["plain"]} for a in ("kernel", "plain"))
     ratio = {k: kf[k] / max(pf[k], 1e-30) for k in kf}
@@ -616,7 +751,7 @@ def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_e
            "leaf_ratio_worst": [max(ratio, key=ratio.get), max(ratio.values())],
            "leaf_ratio_median": float(np.median(list(ratio.values()))),
            "leaf_rel_kernel_f32": kf, "leaf_rel_plain_f32": pf}
-    del grads
+    del grads, got
     print(f"[7] step kernel vs plain: loss {losses}; rel loss {cmp['loss_rel_kernel_plain']:.3e}; "
           f"segmenter-gradient rel Frobenius kernel-plain {cmp['grad_rel_kernel_plain']:.3e}, "
           f"kernel-f32 {cmp['grad_rel_kernel_f32']:.3e}, plain-f32 {cmp['grad_rel_plain_f32']:.3e}; "
@@ -631,48 +766,12 @@ def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_e
           f"gradient leaf {worst}: kernel-f32 {kf[worst]:.3e} > {LEAF_RATIO} x plain-f32 "
           f"{pf[worst]:.3e} + {LEAF_FLOOR}")
 
-    step = make(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    conv_total, gn_total, gn_bwd_total, fold_total = Counter(), Counter(), Counter(), Counter()
-    step_ms, metrics = [], []
+    expected = step_expected(cfg)
     first = state
-    for _ in range(3):
-        conv3x3.reset_launches()
-        gn_relu.reset_launches()
-        norm.fold_launches.clear()
-        t0 = time.perf_counter()
-        state, m = step(state, batch, lr, wf)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        check(Counter(conv3x3.launches) == conv_expected,
-              f"conv3x3 launches per step {dict(conv3x3.launches)} != {dict(conv_expected)}")
-        check(Counter(gn_relu.launches) == gn_expected,
-              f"gn_relu launches per step {dict(gn_relu.launches)} != {dict(gn_expected)}")
-        check(Counter(gn_relu.bwd_launches) == gn_bwd_expected,
-              f"gn_relu backward launches per step {dict(gn_relu.bwd_launches)} != "
-              f"{dict(gn_bwd_expected)}")
-        check(Counter(norm.fold_launches) == fold_expected,
-              f"fold calls per step {dict(norm.fold_launches)} != {dict(fold_expected)}")
-        conv_total.update(conv3x3.launches)
-        gn_total.update(gn_relu.launches)
-        gn_bwd_total.update(gn_relu.bwd_launches)
-        fold_total.update(norm.fold_launches)
-        metrics.append({k: float(v) for k, v in m.items()})
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, rec = run_steps(dev, make_step(dev, cfg), state, batch, lr, wf, expected)
     per_step = dict.fromkeys(conv3x3.SPECS, 0)
-    for key, n in conv_expected.items():
+    for key, n in expected["conv3x3"].items():
         per_step[key[0]] += n
-    steady, timed = [], state  # steady-state time: 5 more steps after the warm-up
-    for _ in range(5):
-        t0 = time.perf_counter()
-        timed, _ = step(timed, batch, lr, wf)
-        torch.cuda.synchronize()
-        steady.append((time.perf_counter() - t0) * 1e3)
-    del timed
-    for m in metrics:
-        check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
-        check(m["grads_finite"] == 1.0 and m["disc_grads_finite"] == 1.0, f"guard fired: {m}")
     for group, keys in (("params", ("conv1.weight", "layer4.1.conv2.weight",
                                     "precls_conv.2.weight")),
                         ("rparams", ("conv0.weight", "x1_resb.0.conv2.weight")),
@@ -681,27 +780,109 @@ def phase_step(dev, results, conv_expected, gn_expected, gn_bwd_expected, fold_e
             check(not torch.equal(getattr(first, group)[k], getattr(state, group)[k]),
                   f"{group}.{k} did not move in 3 steps")
     check(all(bool(torch.isfinite(t).all()) for t in state.tokens.values()), "tokens not finite")
-    results["step"] = dict(cmp, step_ms=step_ms, steady_step_ms=steady,
-                           steady_median_ms=float(np.median(steady)), peak_gib=peak_gib,
-                           metrics=metrics,
+    calls = rec.pop("calls")
+    results["step"] = dict(cmp, **rec, mfu=mfu(1, rec["steady_median_ms"]),
                            launches_per_step=per_step,
-                           gn_relu_launches_per_step=sum(gn_expected.values()),
-                           gn_relu_backward_launches_per_step=sum(gn_bwd_expected.values()),
-                           fold_launches_per_step=sum(fold_expected.values()))
-    print(f"[7] 3 kernel steps at B=1 x {PATCH}, bf16: {[round(t, 1) for t in step_ms]} ms/step "
-          f"(then 5 more: median {np.median(steady):.1f} ms), peak {peak_gib:.2f} GiB; losses "
-          f"{[round(m['loss'], 5) for m in metrics]}; calls per step {per_step} + gn_relu "
-          f"{sum(gn_expected.values())} forward, {sum(gn_bwd_expected.values())} backward + fold "
-          f"{sum(fold_expected.values())}", flush=True)
-    del state, first, step, batch
+                           gn_relu_launches_per_step=sum(expected["gn_relu"].values()),
+                           gn_relu_backward_launches_per_step=sum(
+                               expected["gn_relu_backward"].values()),
+                           fold_launches_per_step=sum(expected["fold"].values()))
+    print(f"[7] 3 kernel steps at B=1 x {PATCH}, bf16: {[round(t, 1) for t in rec['step_ms']]} "
+          f"ms/step (then 5 more: median {rec['steady_median_ms']:.1f} ms, MFU "
+          f"{results['step']['mfu']:.4f}), peak {rec['peak_gib']:.2f} GiB; losses "
+          f"{[round(m['loss'], 5) for m in rec['metrics']]}; calls per step {per_step} + gn_relu "
+          f"{sum(expected['gn_relu'].values())} forward, "
+          f"{sum(expected['gn_relu_backward'].values())} backward + fold "
+          f"{sum(expected['fold'].values())}", flush=True)
+    del state, first, batch
     torch.cuda.empty_cache()
-    return conv_total, gn_total, gn_bwd_total, fold_total
+    return calls
+
+
+def phase_production(dev, results):
+    """Phase 9: the production step, B = PROD_B x 64 x 192 x 192, bf16, from
+    a state one step away from the init. Remat vs no remat (kernels):
+    total loss rel <= REMAT_LOSS_REL; the gradients, worst leaf and whole
+    tree, within REMAT_NOISE times their distance between two runs of the
+    step without remat, plus REMAT_LEAF_REL; kernel vs plain bf16 without
+    remat: phase 7's limits.
+    Then 3 + 5 steps each without and with remat, the calls per step of
+    every kernel asserted. Returns {remat: kernel calls of the 3 checked
+    steps}."""
+    import dataclasses
+
+    from multimodal_pl_tpu_torch.train.state import StepConfig, create_train_state
+
+    cfg = StepConfig(compute_dtype=torch.bfloat16)
+    rcfg = dataclasses.replace(cfg, remat=True)
+    batch = train_batch(dev, cfg, PROD_B)
+    lr, wf = torch.tensor(5e-4, device=dev), torch.tensor(0.05, device=dev)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
+    state, _ = make_step(dev, cfg)(state, batch, lr, wf)
+    got = step_grads(dev, {"kernel": cfg, "rerun": cfg, "remat": rcfg,
+                           "plain": dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain")},
+                     state, batch, wf)
+    losses = {name: v[0] for name, v in got.items()}
+    grads = {name: v[1] for name, v in got.items()}
+    leaves = [k for k in grads["kernel"] if grads["kernel"][k].norm() > 0]
+    seg = [k for k in leaves if k.startswith("params.")]
+    leaf = {v: {k: rel_tree(grads[v], grads["kernel"], [k]) for k in leaves}
+            for v in ("remat", "rerun")}
+    worst = {v: max(leaf[v], key=leaf[v].get) for v in leaf}
+    tree = {v: rel_tree(grads[v], grads["kernel"], leaves) for v in leaf}
+    cmp = {"loss": losses,
+           "loss_rel_remat": abs(losses["remat"] - losses["kernel"]) / abs(losses["kernel"]),
+           "loss_rel_rerun": abs(losses["rerun"] - losses["kernel"]) / abs(losses["kernel"]),
+           "leaf_rel_worst": {v: [worst[v], leaf[v][worst[v]]] for v in leaf},
+           "leaf_rel_median": {v: float(np.median(list(leaf[v].values()))) for v in leaf},
+           "tree_rel": tree, "zero_leaves": len(grads["kernel"]) - len(leaves),
+           "loss_rel_kernel_plain": abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"]),
+           "grad_rel_kernel_plain": rel_tree(grads["kernel"], grads["plain"], seg)}
+    del grads, got
+    print(f"[9] B={PROD_B} step vs the same step without remat: loss rel remat "
+          f"{cmp['loss_rel_remat']:.3e}, rerun {cmp['loss_rel_rerun']:.3e}; gradients over "
+          f"{len(leaves)} leaves, whole tree rel remat {tree['remat']:.3e}, rerun "
+          f"{tree['rerun']:.3e}; worst leaf remat {leaf['remat'][worst['remat']]:.3e} "
+          f"({worst['remat']}), rerun {leaf['rerun'][worst['rerun']]:.3e} ({worst['rerun']}); "
+          f"kernel vs plain bf16: loss rel {cmp['loss_rel_kernel_plain']:.3e}, "
+          f"segmenter-gradient rel {cmp['grad_rel_kernel_plain']:.3e}; losses {losses}",
+          flush=True)
+    check(cmp["loss_rel_remat"] <= REMAT_LOSS_REL, f"remat step loss: {cmp}")
+    check(leaf["remat"][worst["remat"]]
+          <= REMAT_NOISE * leaf["rerun"][worst["rerun"]] + REMAT_LEAF_REL,
+          f"remat step gradient leaf farther than {REMAT_NOISE} x a rerun's: {cmp}")
+    check(tree["remat"] <= REMAT_NOISE * tree["rerun"] + REMAT_LEAF_REL,
+          f"remat step gradients farther than {REMAT_NOISE} x a rerun's: {cmp}")
+    check(cmp["loss_rel_kernel_plain"] <= 3e-2, f"B={PROD_B} step loss kernel vs plain: {cmp}")
+    check(cmp["grad_rel_kernel_plain"] <= GRAD_REL_LIMIT,
+          f"B={PROD_B} step gradients kernel vs plain: {cmp}")
+
+    runs, calls = {}, {}
+    for remat, c in ((False, cfg), (True, rcfg)):
+        _, rec = run_steps(dev, make_step(dev, c), state, batch, lr, wf,
+                           step_expected(c, PROD_B))
+        calls[remat] = rec.pop("calls")
+        rec["mfu"] = mfu(PROD_B, rec["steady_median_ms"])
+        rec["calls_per_step"] = {k: sum(v.values()) // 3 for k, v in calls[remat].items()}
+        runs["remat" if remat else "no_remat"] = rec
+        print(f"[9] B={PROD_B} x {PATCH} bf16, remat {remat}: "
+              f"{[round(t, 1) for t in rec['step_ms']]} ms/step, then 5 more: median "
+              f"{rec['steady_median_ms']:.1f} ms ({[round(t, 1) for t in rec['steady_step_ms']]}),"
+              f" MFU {rec['mfu']:.4f}, peak {rec['peak_gib']:.2f} GiB; losses "
+              f"{[round(m['loss'], 5) for m in rec['metrics']]}; calls per step "
+              f"{rec['calls_per_step']}", flush=True)
+        torch.cuda.empty_cache()
+    results["production_step"] = dict(cmp, **runs)
+    del state, batch
+    torch.cuda.empty_cache()
+    return calls
 
 
 def phase_train_cli(tmp):
-    """Phase 8: mpl-train-torch on synthetic cases at the training patch:
-    epochs 5 and 6 of 7 with validation after each (the loop validates from
-    epoch 5), a checkpoint, then epoch 7 resumed from it."""
+    """Phase 8: mpl-train-torch on synthetic cases at the training patch,
+    host batches (``--device_data false``): epochs 5 and 6 of 7 with
+    validation after each (the loop validates from epoch 5), a checkpoint,
+    then epoch 7 resumed from it."""
     from multimodal_pl_tpu_torch.cli import train
     from multimodal_pl_tpu_torch.ops import conv3x3
     from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint
@@ -711,7 +892,8 @@ def phase_train_cli(tmp):
                                                         n_mri=1, shape=(96, 96, 80), seed=1)
     snap = os.path.join(tmp, "snap")
     args = ["--data_dir", img_dir, "--atlas_path", atlas_path, "--supervision_csv", csv_path,
-            "--snapshot_dir", snap, "--log_every", "1", "--val_pred_every", "1"]
+            "--snapshot_dir", snap, "--log_every", "1", "--val_pred_every", "1",
+            "--device_data", "false"]
     t0 = time.perf_counter()
     conv3x3.reset_launches()
     state = train.main(args + ["--start_epoch", "5", "--num_epochs", "7"])
@@ -743,11 +925,177 @@ def phase_train_cli(tmp):
     return {"steps": int(resumed.step), "losses": losses, "validation": vals}
 
 
+def _ulp_bf16(x):
+    """The bf16 spacing at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def phase_pipeline(dev, results, data):
+    """Phase 10, first part: DeviceDataPipeline on the card over the
+    synthetic AMOS-grid cases ``data`` (images dir, atlas path, csv path).
+    Augmentation off, mirror on: every batch of an epoch equals the host
+    path's crops at the same corners (host layout (H, W, D), cropped,
+    transposed, flipped), sample 0's catlas, sup_mask and label_t. Then the
+    recipe on the card with fixed parameters per sample (noise off) against
+    numpy and scipy in f32 on the same bf16-stored crops: within 1 bf16 ulp
+    of the plain value plus 1e-6 of the largest (the blur's f32 summation
+    order); scipy's blur radius is round(4 sigma), the card's 4, equal at the
+    sigmas used."""
+    from scipy.ndimage import gaussian_filter
+
+    from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+    from multimodal_pl_tpu_torch.data.device_cache import _AUG_KEYS, DeviceDataPipeline
+    from multimodal_pl_tpu_torch.data.supervision import label_t_of
+
+    img_dir, atlas_path, csv_path = data
+    ds = AMOSDataset(img_dir, crop_size=PATCH, usage="train", atlas=np.load(atlas_path),
+                     supervision_csv=csv_path)
+    t0 = time.perf_counter()
+    pipe = DeviceDataPipeline(ds, compute_dtype=torch.bfloat16, augment=False, mirror=True,
+                              seed=0, device=dev)
+    load_s = time.perf_counter() - t0
+    resident = sum(t.nbytes for t in (pipe.images, pipe.labels, pipe.catlas)) / 2 ** 30
+    cd, ch, cw = PATCH
+    bf = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)  # noqa: E731
+    draws = list(pipe.draws(PROD_B))
+    for idxs, starts, flips, p, n in draws:
+        got = pipe.assemble(idxs, starts, flips, p, n)
+        for j, (i, (a, b, c), f) in enumerate(zip(idxs, starts, flips)):
+            cid, image, label, catlas = ds._prepared(int(i))
+            axes = [ax for ax in range(3) if f[ax]]
+            crop = (slice(b, b + ch), slice(c, c + cw), slice(a, a + cd))
+            img = np.flip(image[crop].transpose(2, 0, 1), axes)
+            lab = np.flip(label[crop].transpose(2, 0, 1), axes)
+            check(torch.equal(got["image"][j, ..., 0].cpu(), bf(img)),
+                  f"pipeline image of case {cid} at {(a, b, c)} differs from the host crop")
+            check(torch.equal(got["label"][j].cpu(), torch.from_numpy(lab.astype(np.uint8))),
+                  f"pipeline label of case {cid} differs from the host crop")
+            if j == 0:
+                cat = np.flip(catlas[(slice(None),) + crop].transpose(0, 3, 1, 2),
+                              [ax + 1 for ax in axes])
+                check(torch.equal(got["catlas"].cpu(), bf(cat)), "pipeline catlas differs")
+                check(np.array_equal(got["sup_mask"].cpu().numpy(), ds._sup_mask(cid))
+                      and np.array_equal(got["label_t"].cpu().numpy(), label_t_of(cid)),
+                      "pipeline sup_mask / label_t differ")
+    # the recipe at fixed parameters, noise off: every stage on some sample
+    fixed = {k: np.zeros(PROD_B, np.float32) for k in _AUG_KEYS}
+    fixed.update(blur_on=np.float32([1, 0, 1]), blur_sig=np.float32([1.0, 0.75, 0.875]),
+                 bm_on=np.float32([1, 0, 1]), bm_f=np.float32([1.1, 1.0, 0.9]),
+                 ba_on=np.float32([0, 1, 1]), ba_sh=np.float32([0.0, 0.05, -0.03]),
+                 ct_on=np.float32([0, 1, 1]), ct_f=np.float32([1.0, 1.2, 0.85]))
+    idxs, starts, flips, _, n = draws[0]
+    plain_in = pipe.assemble(idxs, starts, flips, fixed, n)["image"][..., 0].float().cpu()
+    pipe.augment = True
+    aug = pipe.assemble(idxs, starts, flips, fixed, n)["image"][..., 0].float().cpu()
+    worst = 0.0
+    for j in range(PROD_B):
+        x = plain_in[j].numpy().copy()
+        q = {k: v[j] for k, v in fixed.items()}
+        if q["blur_on"]:
+            x = gaussian_filter(x, float(q["blur_sig"]))
+        if q["bm_on"]:
+            x = x * q["bm_f"]
+        if q["ba_on"]:
+            x = x + q["ba_sh"]
+        if q["ct_on"]:
+            mn, mx, mean = x.min(), x.max(), x.mean()
+            x = np.clip((x - mean) * q["ct_f"] + mean, mn, mx)
+        want = torch.from_numpy(x.astype(np.float32))
+        excess = (aug[j] - want).abs() - _ulp_bf16(want) - 1e-6 * want.abs().max()
+        worst = max(worst, excess.max().item())
+    check(worst <= 0, f"device augmentation exceeds 1 bf16 ulp of the f32 recipe by {worst}")
+    results["pipeline"] = {"cases": pipe.n, "resident_gib": resident, "load_s": load_s,
+                           "batches_checked": len(draws), "recipe_excess_over_ulp": worst}
+    print(f"[10] DeviceDataPipeline on {dev}: {pipe.n} cases of {pipe.vol_shape} resident "
+          f"({resident:.2f} GiB, loaded in {load_s:.1f} s); {len(draws)} batches of {PROD_B} equal "
+          f"the host crops; the recipe within 1 bf16 ulp of numpy/scipy f32", flush=True)
+    del pipe, got, aug
+    torch.cuda.empty_cache()
+
+
+def phase_production_cli(tmp, data, step_calls):
+    """Phase 10, second part: mpl-train-torch with the production flags
+    (--batch_size 3 --device_data true --remat true) on the synthetic AMOS
+    cases: epochs 5 and 6 of 7 with validation after each, a checkpoint,
+    epoch 7 resumed; every step launched exactly phase 9's calls of the
+    remat step (conv3x3 train and gn_relu backward). Then the same epochs on
+    host batches (--device_data false, no validation). Patches/s of both
+    from the epoch records."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.cli import train
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu
+
+    img_dir, atlas_path, csv_path = data
+    base = ["--data_dir", img_dir, "--atlas_path", atlas_path, "--supervision_csv", csv_path,
+            "--input_size", ",".join(map(str, PATCH)), "--batch_size", str(PROD_B),
+            "--remat", "true", "--log_every", "1"]
+    out = {}
+    for path in ("true", "false"):
+        snap = os.path.join(tmp, f"snap_{path}")
+        args = base + ["--device_data", path, "--snapshot_dir", snap,
+                       "--val_pred_every", "1" if path == "true" else "1000"]
+        t0 = time.perf_counter()
+        conv3x3.reset_launches()
+        gn_relu.reset_launches()
+        state = train.main(args + ["--start_epoch", "5", "--num_epochs", "7"])
+        steps = int(state.step)
+        check(steps > 0, f"--device_data {path}: no step")
+        train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX)
+        per_step = Counter({k: n // 3 for k, n in step_calls["conv3x3"].items()
+                            if k[0] in train_specs})
+        got = Counter({k: n for k, n in conv3x3.launches.items() if k[0] in train_specs})
+        check(got == Counter({k: n * steps for k, n in per_step.items()}),
+              f"--device_data {path}: conv3x3 train calls {dict(got)} != {steps} x the remat step's")
+        bwd = Counter({k: n // 3 * steps for k, n in step_calls["gn_relu_backward"].items()})
+        check(Counter(gn_relu.bwd_launches) == bwd,
+              f"--device_data {path}: gn_relu backward calls {dict(gn_relu.bwd_launches)}")
+        rec = {"steps": steps}
+        if path == "true":
+            resumed = train.main(args + ["--num_epochs", "8", "--start_epoch", "7",
+                                         "--reload_from_checkpoint", "true"])
+            check(int(resumed.step) == steps * 3 // 2,
+                  f"resume from step {steps} ended at {int(resumed.step)}")
+            rec["steps"] = int(resumed.step)
+        with open(os.path.join(snap, "train.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(len(losses) == rec["steps"] and all(np.isfinite(losses)), f"losses {losses}")
+        rec["patches_per_sec"] = [r["epoch/patches_per_sec"] for r in recs
+                                  if "epoch/patches_per_sec" in r]
+        vals = [r for r in recs if "val/val_dice_ct_mean" in r]
+        if path == "true":
+            check([r["step"] for r in vals] == [5, 6, 7]
+                  and all(np.isfinite(v) for r in vals for v in r.values()
+                          if isinstance(v, float)), f"validation records {vals}")
+        rec.update(losses=losses, validation=vals, s=time.perf_counter() - t0)
+        out[f"device_data_{path}"] = rec
+        print(f"[10] mpl-train-torch --batch_size {PROD_B} --remat true --device_data {path}: "
+              f"{rec['steps']} steps, patches/s per epoch {[round(v, 3) for v in rec['patches_per_sec']]}"
+              f"{', validation after epochs 5-7, checkpoint, resumed' if path == 'true' else ''} "
+              f"({rec['s']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
+
+    # phase 10's cases at the AMOS grid take a minute of numpy and gzip:
+    # one worker process makes them while phases 1-9 run
+    with (tempfile.TemporaryDirectory() as tmp,
+          ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as maker):
+        amos_data = maker.submit(make_synthetic_amos, os.path.join(tmp, "amos"),
+                                 n_ct=AMOS_CASES[0], n_mri=AMOS_CASES[1], shape=AMOS_GRID,
+                                 seed=4, spread_ids=False)
+        return run_phases(amos_data)
+
+
+def run_phases(amos_data) -> int:
+    """Phases 1-10; ``amos_data``: a future of phase 10's synthetic cases."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
@@ -915,7 +1263,7 @@ def main() -> int:
     phase_done("serving")
 
     # ---- phase 6: the training kernels vs plain at every train-step shape ----
-    conv_expected, gn_expected, gn_nograd = training_shapes(StepConfig())
+    conv_expected, gn_expected, gn_nograd, _, _ = training_shapes(StepConfig())
     print(f"[6] training kernels vs plain at every shape of one B=1 x {PATCH} train step "
           f"(bf16 inputs; plain in f32, TF32 off)", flush=True)
     gn_table = phase_gn(dev, results, gn_expected + gn_nograd)
@@ -928,20 +1276,42 @@ def main() -> int:
             dev, results, [(k[1], k[2], k[4:7], k[0] == conv3x3.FUSED, k[7])
                            for k in rest if k[3] == batch], batch=batch, groups=4))
     fold_expected = fold_keys(conv_expected, 4)
-    phase_fold(dev, results, fold_expected)
+    fold_step_table = phase_fold(dev, results, fold_expected)
+    # the shapes of a B = PROD_B step that B = 1 does not launch (the
+    # segmenter's; the refiner's rows do not depend on the batch)
+    conv3, gn3, gn3_nograd, _, _ = training_shapes(StepConfig(), PROD_B)
+    print(f"[6] the same at every further shape of one B={PROD_B} x {PATCH} train step", flush=True)
+    gn_table.update(phase_gn(dev, results, {k for k in gn3 + gn3_nograd if k not in gn_table}))
+    gn_bwd_table.update(phase_gn_bwd(dev, results, {k for k in gn3 if k not in gn_bwd_table}))
+    train_table.update(phase_train_conv(dev, results, {
+        k for k in conv3 if k[0] == conv3x3.TRAIN_FWD and (k[1], k[2], *k[3:7]) not in train_table}))
+    check(not {k for k in conv3 if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)} - set(nograd_table),
+          "the B = PROD_B step launches a gradient-free conv shape phase 6 did not check")
     phase_done("training kernels")
 
     # ---- phase 7: the training path ------------------------------------------
     # every step launches exactly the derived shapes (checked per step), and
     # phase 6 held the kernels against their plain versions at each of them
-    conv_run, gn_run, gn_bwd_run, fold_run = phase_step(
-        dev, results, conv_expected, gn_expected + gn_nograd, gn_expected, fold_expected)
+    step_run = phase_step(dev, results)
     phase_done("train step")
 
     # ---- phase 8: the training entry point -----------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         results["train_cli"] = phase_train_cli(tmp)
     phase_done("train entry point")
+
+    # ---- phase 9: the production step, B = 3, with and without remat ---------
+    prod_run = phase_production(dev, results)
+    phase_done("production step")
+
+    # ---- phase 10: the device pipeline and the production entry point --------
+    data = amos_data.result()
+    print(f"[10] {sum(AMOS_CASES)} synthetic cases at {AMOS_GRID} made in a worker process",
+          flush=True)
+    phase_pipeline(dev, results, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        results["production_cli"] = phase_production_cli(tmp, data, prod_run[True])
+    phase_done("production entry point")
 
     def entry(name, source, replaces, launches, rows):
         """One kernels-line entry from (calls, per-shape row) pairs."""
@@ -965,9 +1335,9 @@ def main() -> int:
                          main_gn, [(n, gn_serving_table[k]) for k, n in serving_gn.items()]))
 
     # per train step: each call's per-shape row from phase 6
-    def step_rows(specs):
+    def step_rows(specs, expected):
         out = []
-        for key, n in conv_expected.items():
+        for key, n in expected.items():
             if key[0] not in specs:
                 continue
             if key[0] == conv3x3.TRAIN_FWD:
@@ -982,23 +1352,33 @@ def main() -> int:
         return out
 
     train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
-    kernels.append(entry(
-        "conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)", SOURCE,
-        K2, sum(n for k, n in conv_run.items() if k[0] in train_specs), step_rows(train_specs)))
-    kernels.append(entry(
-        "conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass", SOURCE, K2_GN,
-        sum(n for k, n in conv_run.items() if k[0] == conv3x3.FUSED),
-        step_rows((conv3x3.FUSED,))))
-    kernels.append(entry("gn_relu forward (gn_relu_fwd_bf16), train step", GN_SOURCE, GN_RELU,
-                         sum(gn_run.values()),
-                         [(n, gn_table[k]) for k, n in (gn_expected + gn_nograd).items()]))
-    kernels.append(entry("gn_relu backward (gn_relu_bwd_bf16), train step", GN_SOURCE, GN_BWD,
-                         sum(gn_bwd_run.values()),
-                         [(n, gn_bwd_table[k]) for k, n in gn_expected.items()]))
-    results["fold_calls_per_step"] = sum(fold_run.values()) // 3
+    for tag, run, cfg in (("train step", step_run, StepConfig()),
+                          (f"B={PROD_B} train step with remat", prod_run[True],
+                           StepConfig(remat=True))):
+        expected = step_expected(cfg, PROD_B if cfg.remat else 1)
+        kernels.append(entry(
+            f"conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner), {tag}",
+            SOURCE, K2, sum(n for k, n in run["conv3x3"].items() if k[0] in train_specs),
+            step_rows(train_specs, expected["conv3x3"])))
+        kernels.append(entry(
+            f"conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass, {tag}", SOURCE, K2_GN,
+            sum(n for k, n in run["conv3x3"].items() if k[0] == conv3x3.FUSED),
+            step_rows((conv3x3.FUSED,), expected["conv3x3"])))
+        kernels.append(entry(f"gn_relu forward (gn_relu_fwd_bf16), {tag}", GN_SOURCE, GN_RELU,
+                             sum(run["gn_relu"].values()),
+                             [(n, gn_table[k]) for k, n in expected["gn_relu"].items()]))
+        kernels.append(entry(f"gn_relu backward (gn_relu_bwd_bf16), {tag}", GN_SOURCE, GN_BWD,
+                             sum(run["gn_relu_backward"].values()),
+                             [(n, gn_bwd_table[k]) for k, n in expected["gn_relu_backward"].items()]))
+        kernels.append(entry(f"group_norm_fold statistics (gn_fold_bf16), {tag}", GN_SOURCE,
+                             GN_FOLD, sum(run["fold"].values()),
+                             [(n, fold_step_table[k]) for k, n in expected["fold"].items()]))
+    results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]
     results["step_calls"] = [[*k, n] for k, n in conv_expected.items()]
+    results["production_step_calls"] = [[*k, n] for k, n in step_expected(
+        StepConfig(remat=True), PROD_B)["conv3x3"].items()]
     results["train_step_library_dw_ms"] = sum(
         n * train_table[(k[1], k[2], *k[3:7])]["dw_ms"] for k, n in conv_expected.items()
         if k[0] == conv3x3.TRAIN_FWD)

@@ -9,9 +9,14 @@ It accepts every flag of the JAX CLI. Differences:
 - ``--pallas_gn`` / ``--pallas_k2`` select the hand-written CUDA kernels
   (true, the default) or their plain PyTorch versions (false), which on the
   GPU serve tests only;
-- ``--mesh`` (non-empty), ``--remat true`` and ``--device_data true`` raise
-  NotImplementedError: they are queued in ROADMAP.md; ``--device_data auto``
-  takes the host batch path;
+- ``--mesh`` (non-empty) raises NotImplementedError: data-parallel training
+  is queued in ROADMAP.md;
+- ``--device_data`` (``data/device_cache.py``): ``auto`` (the default)
+  holds the training set on ``--device`` and assembles batches there when
+  every case has the same shape, else prints why and takes the host batch
+  path; ``true`` raises that ValueError instead; ``false`` takes the host
+  path;
+- ``--remat true`` checkpoints the segmenter's encoder and decoder stages;
 - ``--bd`` is accepted and changes nothing: the voxel path is the reference.
 
 Checkpoints (``ckpt_<step>.pt`` in ``--snapshot_dir``) hold the whole train
@@ -78,7 +83,8 @@ def get_arguments() -> argparse.ArgumentParser:
                    help="bfloat16 compute (f32 losses and optimizer); the CUDA kernels "
                         "take bf16")
     p.add_argument("--remat", type=str2bool, default=False,
-                   help="not ported yet (ROADMAP queue 1): true raises")
+                   help="recompute the segmenter's encoder and decoder stages in the "
+                        "backward instead of keeping their activations")
     p.add_argument("--mesh", type=str, default="",
                    help="data-parallel mesh; not ported yet (ROADMAP queue 1, DDP): "
                         "a non-empty value raises")
@@ -112,8 +118,9 @@ def get_arguments() -> argparse.ArgumentParser:
                    help="per-step JSONL metric cadence (each log waits for the device; "
                         "<= 0 keeps epoch summaries only)")
     p.add_argument("--device_data", choices=("auto", "true", "false"), default="auto",
-                   help="device-resident batch assembly; not ported yet (ROADMAP queue 1): "
-                        "true raises, auto and false take the host batch path")
+                   help="hold the prepared training set in device memory and assemble "
+                        "batches (crop + intensity augs) there (data/device_cache.py). "
+                        "auto: on when case shapes are uniform")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
@@ -123,12 +130,6 @@ def _not_ported(args) -> None:
     if args.mesh:
         raise NotImplementedError("--mesh: data-parallel training is not ported yet "
                                   "(ROADMAP.md queue 1, DDP for --mesh)")
-    if args.remat:
-        raise NotImplementedError("--remat: stage rematerialization is not ported yet "
-                                  "(ROADMAP.md queue 1, --remat)")
-    if args.device_data == "true":
-        raise NotImplementedError("--device_data true: the device-resident data cache is "
-                                  "not ported yet (ROADMAP.md queue 1, data/device_cache.py)")
 
 
 def main(argv=None):
@@ -140,6 +141,7 @@ def main(argv=None):
     import torch
 
     from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+    from multimodal_pl_tpu_torch.data.device_cache import DeviceDataPipeline
     from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
     from multimodal_pl_tpu_torch.train.loop import LoopConfig, train_loop
     from multimodal_pl_tpu_torch.train.state import (
@@ -162,7 +164,7 @@ def main(argv=None):
         train_refiner=args.train_refiner, weight_std=args.weight_std, base=args.model_base,
         layers=tuple(int(x) for x in args.model_layers.split(",")),
         refiner_filter=args.refiner_filter, disc_ndf=args.disc_ndf,
-        disc_depth=args.disc_depth)
+        disc_depth=args.disc_depth, remat=args.remat)
     state = create_train_state(generator, scfg)
     if args.reload_from_checkpoint:
         path = args.reload_path or latest_checkpoint(args.snapshot_dir)
@@ -187,9 +189,20 @@ def main(argv=None):
                       val_every=args.val_pred_every, snapshot_dir=args.snapshot_dir,
                       start_epoch=args.start_epoch, stop_epoch=args.stop_epoch,
                       tile=(d, h, w), num_classes=args.num_classes)
+    device_pipe = None
+    if args.device_data != "false":
+        try:
+            device_pipe = DeviceDataPipeline(train_ds, compute_dtype=scfg.compute_dtype,
+                                             seed=args.seed, device=device)
+            print(f"device data pipeline: {len(train_ds)} cases resident on {device} "
+                  f"({device_pipe.images.nbytes / 1e6:.0f} MB images)")
+        except ValueError as e:
+            if args.device_data == "true":
+                raise
+            print(f"device data pipeline unavailable ({e}); using host path")
     step_fn = make_train_step(model, refiner, disc, scfg)
     return train_loop(state, step_fn, model, train_ds, valid_ds, scfg, lcfg, device,
-                      log_every=args.log_every)
+                      log_every=args.log_every, device_pipe=device_pipe)
 
 
 if __name__ == "__main__":

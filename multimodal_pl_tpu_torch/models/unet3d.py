@@ -15,6 +15,12 @@ the attention maps: none of them feeds the logits, and eager PyTorch has no
 dead-code elimination to drop them as XLA does under ``jit``. ``deep=False``
 skips the deep heads alone (``deep_maps`` is empty): the train step's loss
 takes no deep outputs (``train/step.py:154-161`` of the JAX package).
+
+``remat=True`` checkpoints the stages that the JAX model wraps in
+``nn.remat`` (the encoder ``layer0-4`` and the decoder ``x8/x4/x2/x1_resb``;
+JAX ``unet3d.py:82, 186``) while autograd records: their activations are
+dropped after the forward and recomputed in the backward. The stem, the
+heads and the EAMs are not checkpointed.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Dict, Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_pl_tpu_torch.models.blocks import (
     GNReLUConv,
@@ -41,7 +49,7 @@ class UNet3DFEAM(nn.Module):
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, use_cm: Sequence[bool] = (True, True, True),
                  deep_up: bool = False, base: int = 32, token_update: str = "post",
-                 conv_impl: str = "kernel", gn_impl: str = "kernel",
+                 conv_impl: str = "kernel", gn_impl: str = "kernel", remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if token_update != "post":
@@ -49,6 +57,7 @@ class UNet3DFEAM(nn.Module):
                 f"token_update={token_update!r}: only 'post' (feam3) is ported")
         b, nc, ws = base, num_classes, weight_std
         self.num_classes, self.use_cm, self.deep_up = nc, tuple(use_cm), deep_up
+        self.remat = remat
 
         def stage(cin, cout, blocks, stride):
             return ResStage(cin, cout, blocks, stride, weight_std=ws, conv_impl=conv_impl,
@@ -85,19 +94,20 @@ class UNet3DFEAM(nn.Module):
         tokens), or the logits alone when not aux; deep_maps is empty when
         not deep."""
         full_spatial = tuple(x.shape[1:4])
+        stage = self._stage
         x = self.conv1(x)
-        skip0 = x = self.layer0(x)
-        skip1 = x = self.layer1(x)
-        skip2 = x = self.layer2(x)
-        skip3 = x = self.layer3(x)
-        x = self.fusionConv(self.layer4(x))
+        skip0 = x = stage(self.layer0, x)
+        skip1 = x = stage(self.layer1, x)
+        skip2 = x = stage(self.layer2, x)
+        skip3 = x = stage(self.layer3, x)
+        x = self.fusionConv(stage(self.layer4, x))
 
         attn_maps, deep_maps, features = [], [], []
         scales = ((skip3, self.x8_resb, self.deepout1, self.eam84, "t1"),
                   (skip2, self.x4_resb, self.deepout2, self.eam42, "t2"),
                   (skip1, self.x2_resb, self.deepout3, self.eam21, "t3"))
         for i, (skip, resb, head, eam, key) in enumerate(scales):
-            x = resb(upsample_trilinear(x, 2) + skip)
+            x = stage(resb, upsample_trilinear(x, 2) + skip)
             if not aux:
                 continue
             if deep:
@@ -112,8 +122,29 @@ class UNet3DFEAM(nn.Module):
                     amap = resize_trilinear(amap, full_spatial)
                 attn_maps.append(amap)
 
-        x = self.x1_resb(upsample_trilinear(x, 2) + skip0)
+        x = stage(self.x1_resb, upsample_trilinear(x, 2) + skip0)
         logits = self.precls_conv(x)
         if not aux:
             return logits
         return logits, attn_maps, deep_maps, features, dict(tokens)
+
+    def _stage(self, stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """stage(x), checkpointed when ``remat`` is set and autograd records.
+
+        The stage's parameter tensors go into the checkpoint as inputs and
+        the stage runs on them through ``functional_call``: the recompute in
+        the backward then uses exactly the tensors of the forward. (A
+        checkpoint of ``stage`` itself would read the module's attributes
+        again in the backward, where the train step's ``functional_call``
+        has already put the module's own parameters back.) Non-reentrant
+        checkpointing keeps grad mode on in the forward, so the forward and
+        the recompute take the same training route of the blocks; the stages
+        draw no random numbers, so no RNG state is saved."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return stage(x)
+        names, tensors = zip(*stage.named_parameters())
+
+        def run(x, *params):
+            return functional_call(stage, dict(zip(names, params)), (x,))
+
+        return checkpoint(run, x, *tensors, use_reentrant=False, preserve_rng_state=False)

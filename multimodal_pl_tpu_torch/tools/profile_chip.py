@@ -1,7 +1,8 @@
 """Device-time profile of the port's two main paths on one GPU, by kernel
 category: one serving tile batch (UNet3DFEAM, 4 x 64 x 192 x 192 bf16,
-``aux=False``) and one train step (``StepConfig`` defaults, B = 1, bf16),
-both with random weights from fixed seeds.
+``aux=False``) and the train step (``StepConfig`` defaults, bf16) at B = 1
+and at the production B = 3 without and with remat, all with random
+weights from fixed seeds.
 
     PYTHONPATH=. python3 -m multimodal_pl_tpu_torch.tools.profile_chip [OUTDIR]
 
@@ -118,29 +119,32 @@ def main(outdir: str = "chiprun_out") -> dict:
     del model, x
     torch.cuda.empty_cache()
 
-    cfg = StepConfig(compute_dtype=torch.bfloat16)
-    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
-    step = make_train_step(*(m.to(dev) for m in build_models(cfg)), cfg)
-    rng = np.random.default_rng(5)
-    nc, patch = cfg.num_classes, (64, 192, 192)
-    sup = np.zeros(nc, np.float32)
-    sup[5] = 1
-    batch = to_device({"image": rng.standard_normal((1, *patch, 1)).astype(np.float32),
-                       "label": rng.integers(0, nc, (1, *patch)).astype(np.uint8),
-                       "catlas": rng.random((nc - 1, *patch)).astype(np.float32),
-                       "sup_mask": sup,
-                       "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)},
-                      cfg, dev)
-    lr, wf = torch.tensor(5e-4, device=dev), torch.tensor(0.05, device=dev)
-    box = [state]
+    for batch, remat in ((1, False), (3, False), (3, True)):
+        cfg = StepConfig(compute_dtype=torch.bfloat16, remat=remat)
+        state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
+        step = make_train_step(*(m.to(dev) for m in build_models(cfg)), cfg)
+        rng = np.random.default_rng(5)
+        nc, patch = cfg.num_classes, (64, 192, 192)
+        sup = np.zeros(nc, np.float32)
+        sup[5] = 1
+        host = {"image": rng.standard_normal((batch, *patch, 1)).astype(np.float32),
+                "label": rng.integers(0, nc, (batch, *patch)).astype(np.uint8),
+                "catlas": rng.random((nc - 1, *patch)).astype(np.float32), "sup_mask": sup,
+                "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)}
+        batch_t = to_device(host, cfg, dev)
+        lr, wf = torch.tensor(5e-4, device=dev), torch.tensor(0.05, device=dev)
+        box = [state]
 
-    def one_step():
-        box[0], _ = step(box[0], batch, lr, wf)
+        def one_step():
+            box[0], _ = step(box[0], batch_t, lr, wf)
 
-    for _ in range(4):
-        one_step()
-    out["train_step"] = _profile(one_step, 3)
-    _report("train step B = 1 x 64 x 192 x 192", out["train_step"])
+        for _ in range(4):
+            one_step()
+        name = "train_step" if batch == 1 else f"train_step_b{batch}" + ("_remat" * remat)
+        out[name] = _profile(one_step, 3)
+        _report(f"train step B = {batch} x 64 x 192 x 192, remat {remat}", out[name])
+        del state, step, box, batch_t
+        torch.cuda.empty_cache()
     os.makedirs(outdir, exist_ok=True)
     with open(os.path.join(outdir, "profile.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -1,8 +1,10 @@
 """Epoch-level training, port of ``multimodal_pl_tpu/train/loop.py``
 (reference train_amos_atlas_final.py:188-474).
 
-Per epoch: poly LR, host batches (``AMOSDataset.batches``) copied to the
-device from pinned memory, the train step, metric logs; every ``val_every``
+Per epoch: poly LR, batches (host batches from ``AMOSDataset.batches``
+copied to the device from pinned memory, or device batches from a
+``data.device_cache.DeviceDataPipeline``), the train step, metric logs and
+the epoch's patches/s; every ``val_every``
 epochs (from epoch 5) a full-volume sliding-window validation on the valid
 split and a checkpoint; a checkpoint at the end.
 
@@ -125,13 +127,18 @@ def to_device(batch, scfg: StepConfig, device) -> dict:
 
 
 def train_loop(state: TrainState, step_fn, model, train_ds, valid_ds, scfg: StepConfig,
-               cfg: LoopConfig, device, log_every: int = 10) -> TrainState:
+               cfg: LoopConfig, device, log_every: int = 10, device_pipe=None) -> TrainState:
     """Runs epochs start_epoch .. stop (or num_epochs) - 1 on ``device``,
-    where ``state`` must already be."""
+    where ``state`` must already be. device_pipe: a DeviceDataPipeline of
+    train_ds on ``device``; its batches are assembled on the device and go
+    to the step as they are, in place of train_ds's host batches."""
     os.makedirs(cfg.snapshot_dir, exist_ok=True)
     logger = MetricsLogger(cfg.snapshot_dir)
     check_refine_grad_capacity(train_ds, scfg)
     device = torch.device(device)
+    if device_pipe is not None and device_pipe.device != device:
+        raise ValueError(f"device_pipe holds its batches on {device_pipe.device}, the step "
+                         f"runs on {device}")
 
     stop = min(cfg.stop_epoch, cfg.num_epochs) if cfg.stop_epoch else cfg.num_epochs
     for epoch in range(cfg.start_epoch, stop):
@@ -141,8 +148,13 @@ def train_loop(state: TrainState, step_fn, model, train_ds, valid_ds, scfg: Step
                           scfg.weight_feature_max).to(device)
         loss_handles = []
         t0 = time.time()
-        for it, b in enumerate(train_ds.batches(cfg.batch_size, epochs=1)):
-            state, metrics = step_fn(state, to_device(b, scfg, device), lr, wf)
+        if device_pipe is not None:
+            epoch_batches = device_pipe.batches(cfg.batch_size, epochs=1)
+        else:
+            epoch_batches = (to_device(b, scfg, device)
+                             for b in train_ds.batches(cfg.batch_size, epochs=1))
+        for it, b in enumerate(epoch_batches):
+            state, metrics = step_fn(state, b, lr, wf)
             loss_handles.append(metrics["loss"])
             if log_every >= 1 and it % log_every == 0:  # <= 0: epoch summaries only
                 logger.log(int(state.step), {k: float(v) for k, v in metrics.items()})

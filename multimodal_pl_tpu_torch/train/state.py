@@ -18,7 +18,9 @@ new values with a device-side flag, so nothing waits for the device.
 
 Kernel choice is explicit: ``conv_impl`` and ``gn_impl`` ('kernel' or
 'plain') go to every model. The JAX config's ``pallas_gn``/``pallas_k2``/
-``pallas_infer`` map to them; its ``remat`` and ``bd`` have no port.
+``pallas_infer`` map to them; its ``bd`` has no port. ``remat``
+checkpoints the segmenter's stages (the refiner and the discriminator
+have none, as in JAX).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class StepConfig:
     disc_ndf: int = 32
     disc_depth: int = 6
     weight_std: bool = True
+    remat: bool = False
 
 
 def tiny_step_config(**overrides) -> StepConfig:
@@ -89,7 +92,7 @@ def build_models(cfg: StepConfig, generator: torch.Generator | None = None):
     impls = dict(conv_impl=cfg.conv_impl, gn_impl=cfg.gn_impl)
     model = UNet3DFEAM(layers=cfg.layers, num_classes=cfg.num_classes,
                        weight_std=cfg.weight_std, deep_up=cfg.deep_up, base=cfg.base,
-                       generator=g, **impls)
+                       remat=cfg.remat, generator=g, **impls)
     refiner = RefinerUNet3D(num_classes=2, weight_std=cfg.weight_std,
                             init_filter=cfg.refiner_filter, in_channel=2, generator=g, **impls)
     disc = (NormStyleDiscriminator(ndf=cfg.disc_ndf, depth=cfg.disc_depth, generator=g)

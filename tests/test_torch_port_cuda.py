@@ -1,15 +1,22 @@
 """The CUDA kernels (conv3x3_gn, conv3x3_train, the gn_relu forward and
-backward on both routes, the GroupNorm fold statistics) against their plain PyTorch versions on the GPU, and the model's
-gradients on the card.
+backward on both routes, the GroupNorm fold statistics) against their plain
+PyTorch versions on the GPU, the model's gradients on the card, the train
+step with and without remat on the card, and the device data pipeline.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 """
 
+import dataclasses
+import os
+
+import numpy as np
 import pytest
 import torch
 
+from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+from multimodal_pl_tpu_torch.data.device_cache import DeviceDataPipeline
 from multimodal_pl_tpu_torch.models import UNet3DFEAM
 from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm
 from multimodal_pl_tpu_torch.ops.conv3x3 import conv3x3_gn, conv3x3_gn_reference, conv3x3_train
@@ -180,7 +187,11 @@ GN_CASES = [((2, 4, 12, 12), 24, 4, "cluster"), ((2, 4, 12, 12), 24, 4, "grid"),
             ((11, 8, 24, 24), 24, 4, "grid"), ((11, 2, 6, 6), 24, 6, None),
             ((2, 2, 6, 6), 192, 12, "cluster"), ((2, 2, 6, 6), 192, 12, "grid"),
             ((1, 4, 12, 12), 256, 16, "cluster"), ((4, 8, 24, 24), 256, 16, None),
-            ((1, 16, 48, 48), 128, 16, "grid"), ((1, 32, 96, 96), 32, 16, None)]
+            ((1, 16, 48, 48), 128, 16, "grid"), ((1, 32, 96, 96), 32, 16, None),
+            # B = 3, the production batch: the backward's cluster holds all
+            # three samples where they fit, else both take the grid route
+            ((3, 4, 12, 12), 256, 16, "cluster"), ((3, 4, 12, 12), 256, 16, "grid"),
+            ((3, 8, 24, 24), 128, 16, None), ((3, 16, 48, 48), 64, 16, None)]
 
 
 def _gn_inputs(shape, c, mean=0.5):
@@ -312,3 +323,90 @@ def test_model_gradients_on_the_card_match_plain(cuda_device):
     kernel, plain16, plain32 = (torch.cat([t.flatten() for t in gs if t is not None])
                                 for gs in grads)
     assert _rel(kernel, plain32) <= 2 * _rel(plain16, plain32) + 1e-3
+
+
+@pytest.fixture(scope="module")
+def amos_ds(tmp_path_factory):
+    from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
+
+    root = str(tmp_path_factory.mktemp("amos"))
+    make_synthetic_amos(root, n_ct=4, n_mri=2, shape=(48, 48, 40), seed=0, spread_ids=False)
+    atlas = np.load(os.path.join(root, "atlas_mm.npy"))
+    return AMOSDataset(os.path.join(root, "imagesTr"), crop_size=(24, 32, 32), usage="train",
+                       atlas=atlas, cache=True)
+
+
+@pytest.mark.cuda
+def test_device_pipeline_on_the_card(cuda_device, amos_ds):
+    """Batches on the card in the step's layout and dtypes; with the same
+    seed, the same bits (augmented, mirrored); without augmentation, the
+    host-path crops at the drawn corners."""
+    def batches(**kw):
+        pipe = DeviceDataPipeline(amos_ds, compute_dtype=torch.bfloat16, seed=3, **kw)
+        return [{k: v.clone() for k, v in b.items()} for b in pipe.batches(2, epochs=2)]
+
+    first, second = batches(mirror=True), batches(mirror=True)
+    for a, b in zip(first, second):
+        assert a["image"].is_cuda and a["image"].dtype == torch.bfloat16
+        assert a["image"].shape == (2, 24, 32, 32, 1) and a["catlas"].shape == (13, 24, 32, 32)
+        assert a["label"].dtype == torch.uint8
+        assert a["sup_mask"].dtype == a["label_t"].dtype == torch.float32
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    pipe = DeviceDataPipeline(amos_ds, compute_dtype=torch.float32, augment=False)
+    idxs, starts, flips, p, n = next(pipe.draws(1))
+    got = pipe.assemble(idxs, starts, flips, p, n)
+    _, image, label, catlas = amos_ds._prepared(int(idxs[0]))
+    a, b, c = (int(v) for v in starts[0])
+    want = image.transpose(2, 0, 1)[a:a + 24, b:b + 32, c:c + 32]
+    assert torch.equal(got["image"][0, ..., 0].cpu(), torch.from_numpy(np.ascontiguousarray(want)))
+
+
+def test_device_pipeline_without_a_gpu_raises(amos_ds, monkeypatch):
+    """Constructed for the card (the default device) where none is visible:
+    raises, never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceDataPipeline(amos_ds)
+
+
+@pytest.mark.cuda
+def test_remat_step_on_the_card_equals_step(cuda_device):
+    """tiny_step_config, bf16, B = 2, from a state after one step: the step
+    with remat against the step without, on the kernels; total loss rel
+    <= 1e-6 (a deterministic forward); the gradients, worst leaf and whole
+    tree, no farther from the step's than 2 x a second run of the step is,
+    + 1e-3 (the trilinear upsample's gradient adds with atomics, and bf16
+    carries a reordered sum far: 1.4e-2 on the stem's weight, H100 run)."""
+    from multimodal_pl_tpu_torch.train.state import (
+        build_models, create_train_state, tiny_step_config)
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    cfg = tiny_step_config(compute_dtype=torch.bfloat16)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    sup = torch.zeros(14)
+    sup[5] = 1
+    batch = {"image": torch.randn((2, 32, 32, 32, 1), generator=g),
+             "label": torch.randint(0, 14, (2, 32, 32, 32), generator=g).to(torch.uint8),
+             "catlas": torch.rand((13, 32, 32, 32), generator=g), "sup_mask": sup,
+             "label_t": torch.tensor([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1.])}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    wf = torch.tensor(0.05, device=cuda_device)
+
+    def step(c):
+        return make_train_step(*(m.to(cuda_device) for m in build_models(c)), c)
+
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(cuda_device)
+    state, _ = step(cfg)(state, batch, torch.tensor(1.0, device=cuda_device), wf)
+    runs = [step(c).grads(state, batch, wf)
+            for c in (cfg, cfg, dataclasses.replace(cfg, remat=True))]
+    (want, wg, _), (_, rerun, _), (got, gg, _) = runs
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    leaves = [(i, k) for i in (0, 1) for k in wg[i] if float(wg[i][k].norm()) > 0]
+
+    def dist(g):
+        leaf = max(_rel(g[i][k], wg[i][k]) for i, k in leaves)
+        tree = _rel(*(torch.cat([t[i][k].flatten() for i, k in leaves]) for t in (g, wg)))
+        return leaf, tree
+
+    for remat, noise in zip(dist(gg), dist(rerun)):
+        assert remat <= 2 * noise + 1e-3, (remat, noise)

@@ -34,7 +34,7 @@ evaluate.get_arguments().parse_args([])
 train.get_arguments().parse_args([])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "multimodal_pl_tpu")
-print(json.dumps({"n": len(names), "bad": bad, "ref": ref}))
+print(json.dumps({"names": names, "bad": bad, "ref": ref}))
 """ % (FORBIDDEN,)
 
 
@@ -53,7 +53,9 @@ def test_port_imports_no_jax():
     proc = _python(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout)
-    assert got["n"] >= 15, got  # every module of the package was imported
+    assert len(got["names"]) >= 15, got  # every module of the package was imported
+    assert {"multimodal_pl_tpu_torch.data.device_cache",
+            "multimodal_pl_tpu_torch.utils.flops"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
 

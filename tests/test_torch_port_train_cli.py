@@ -1,10 +1,13 @@
 """mpl-train-torch end to end on the CPU: two short epochs at the tiny
 geometry on synthetic AMOS-layout cases write the JSONL log and a
-checkpoint, and a second run resumes from it. The device flags of both CLIs
-raise where CUDA is missing, and the unported options raise."""
+checkpoint, and a second run resumes from it, on the host batch path and on
+the device batch path (``--device_data``) with ``--remat``. The device
+flags of both CLIs raise where CUDA is missing, and the unported option
+(``--mesh``) raises."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -29,9 +32,29 @@ def data(tmp_path_factory):
     return ["--data_dir", img_dir, "--atlas_path", atlas_path, "--supervision_csv", csv_path]
 
 
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    """Cases of two shapes: ids 1-3 and 500 at 40 x 40 x 36, ids 4-6 at
+    44 x 40 x 36 (the seeded split puts both shapes in the train split)."""
+    root = str(tmp_path_factory.mktemp("amos_mixed"))
+    img_dir, atlas_path, csv_path = make_synthetic_amos(root, n_ct=3, n_mri=1, shape=(40, 40, 36),
+                                                        seed=2, spread_ids=False)
+    other = str(tmp_path_factory.mktemp("amos_other"))
+    make_synthetic_amos(other, n_ct=6, n_mri=0, shape=(44, 40, 36), seed=3, spread_ids=False)
+    for sub, name in (("imagesTr", "amos_{:04d}_0000.nii.gz"), ("labelsTr", "amos_{:04d}.nii.gz")):
+        for cid in (4, 5, 6):
+            shutil.copy(os.path.join(other, sub, name.format(cid)), os.path.join(root, sub))
+    return ["--data_dir", img_dir, "--atlas_path", atlas_path, "--supervision_csv", csv_path]
+
+
+def _records(snap):
+    with open(os.path.join(snap, "train.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
 def test_train_cli_runs_two_epochs_and_resumes(data, tmp_path):
     snap = str(tmp_path / "snap")
-    args = data + TINY + ["--snapshot_dir", snap, "--device", "cpu"]
+    args = data + TINY + ["--snapshot_dir", snap, "--device", "cpu", "--device_data", "false"]
     state = train.main(args + ["--num_epochs", "2"])
     path = latest_checkpoint(snap)
     assert path is not None and int(state.step) >= 2
@@ -49,8 +72,76 @@ def test_train_cli_runs_two_epochs_and_resumes(data, tmp_path):
     assert latest_checkpoint(snap) != path
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data:2"], ["--remat", "true"],
-                                  ["--device_data", "true"]])
+def test_train_cli_device_data_and_remat_run_and_resume(data, tmp_path, capsys):
+    """--device_data true --remat true: two epochs on device batches, a
+    checkpoint, one resumed epoch; as many steps as the host path, patches/s
+    in each epoch record."""
+    snap = str(tmp_path / "snap")
+    args = data + TINY + ["--snapshot_dir", snap, "--device", "cpu", "--device_data", "true",
+                          "--remat", "true"]
+    state = train.main(args + ["--num_epochs", "2"])
+    assert "device data pipeline: 2 cases resident on cpu" in capsys.readouterr().out
+    assert int(state.step) == 4  # 2 train cases, batch 1
+    recs = _records(snap)
+    assert all(r["loss"] > 0 and r["grads_finite"] == 1.0 for r in recs if "loss" in r)
+    assert [r["epoch/patches_per_sec"] > 0 for r in recs if "epoch/epoch_loss" in r] == [True] * 2
+    path = latest_checkpoint(snap)
+    resumed = train.main(args + ["--num_epochs", "3", "--start_epoch", "2",
+                                 "--reload_from_checkpoint", "true"])
+    assert int(resumed.step) == 6 and latest_checkpoint(snap) != path
+
+
+def test_train_cli_remat_trains_as_without(data, tmp_path, monkeypatch):
+    """--remat true reaches the segmenter (its stages run checkpointed) and
+    one epoch ends in the same state, bit for bit, as without it."""
+    from multimodal_pl_tpu_torch.models import unet3d
+
+    calls = []
+    real = unet3d.checkpoint
+    monkeypatch.setattr(unet3d, "checkpoint", lambda *a, **k: calls.append(1) or real(*a, **k))
+    states = {}
+    for remat in ("false", "true"):
+        calls.clear()
+        states[remat] = train.main(data + TINY + [
+            "--snapshot_dir", str(tmp_path / remat), "--device", "cpu", "--num_epochs", "1",
+            "--remat", remat])
+        assert len(calls) == (18 if remat == "true" else 0)  # 9 stages x 2 steps
+    for group in ("params", "rparams", "dparams", "tokens"):
+        a, b = getattr(states["true"], group), getattr(states["false"], group)
+        assert all(torch.equal(a[k], b[k]) for k in a), group
+
+
+def test_train_cli_device_data_true_raises_on_mixed_shapes(mixed, tmp_path):
+    with pytest.raises(ValueError, match="uniform case shapes"):
+        train.main(mixed + TINY + ["--snapshot_dir", str(tmp_path), "--device", "cpu",
+                                   "--device_data", "true"])
+
+
+def test_train_cli_device_data_auto_falls_back_on_mixed_shapes(mixed, tmp_path, capsys):
+    """auto on cases of two shapes: says why and trains on host batches."""
+    state = train.main(mixed + TINY + ["--snapshot_dir", str(tmp_path), "--device", "cpu",
+                                       "--num_epochs", "1"])
+    out = capsys.readouterr().out
+    assert "device data pipeline unavailable (device data pipeline needs uniform case shapes" in out
+    assert "using host path" in out and int(state.step) == 4  # 4 train cases
+
+
+def test_train_cli_device_data_auto_takes_the_pipeline(data, tmp_path, capsys, monkeypatch):
+    """auto on cases of one shape: the batches come from the pipeline (the
+    host iterator is never asked for one)."""
+    from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+
+    def no_host_batches(*a, **k):
+        raise AssertionError("host batches requested")
+
+    monkeypatch.setattr(AMOSDataset, "batches", no_host_batches)
+    state = train.main(data + TINY + ["--snapshot_dir", str(tmp_path), "--device", "cpu",
+                                      "--num_epochs", "1"])
+    assert "device data pipeline: 2 cases resident on cpu" in capsys.readouterr().out
+    assert int(state.step) == 2
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "data:2"]])
 def test_train_cli_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(flag + ["--device", "cpu"])
