@@ -4,12 +4,24 @@ evaluate_amos.py).
 
 Full-volume sliding-window prediction over a split of an AMOS-layout
 dataset, a per-case dice CSV, per-organ CT/MRI tables, and optional NIfTI
-prediction dumps. ``--reload_path`` takes a reference ``.pth`` or an
-``.npz`` written by :func:`multimodal_pl_tpu_torch.convert.save_npz`;
-comma-separated paths are an ensemble whose logits are averaged. A missing
-checkpoint leaves the seeded random weights. ``--device`` (default
-``cuda``) raises when there is no GPU; ``cpu`` runs only when asked for (the
-conv kernel's plain version then runs).
+prediction dumps. ``--reload_path`` takes any checkpoint either trainer
+writes, or a user holds (:func:`multimodal_pl_tpu_torch.convert.read_checkpoint`):
+a reference ``.pth``, an ``.npz`` written by
+:func:`multimodal_pl_tpu_torch.convert.save_npz`, a ``ckpt_<step>.pt`` of
+``mpl-train-torch`` or an orbax ``ckpt_<step>/`` directory of ``mpl-train``
+(read with ``tensorstore``); comma-separated paths are an ensemble whose
+logits are averaged. With ``--reload_from_checkpoint true`` and an empty
+``--reload_path`` the latest checkpoint of either kind in the working
+directory is loaded, as ``mpl-evaluate`` does; a missing checkpoint leaves
+the seeded random weights. ``--device`` (default ``cuda``) raises when
+there is no GPU; ``cpu`` runs only when asked for (the kernels' plain
+versions then run).
+
+It accepts every flag of ``mpl-evaluate``: ``--pallas_k2`` and
+``--fused_gn`` choose the hand-written CUDA kernels (true, the default) or
+their plain PyTorch versions, as ``mpl-train-torch``'s ``--pallas_k2`` and
+``--pallas_gn`` do; ``--bd`` is accepted and changes nothing; a non-empty
+``--mesh`` raises NotImplementedError (data parallelism is not ported yet).
 """
 
 from __future__ import annotations
@@ -70,9 +82,28 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--deep_up", type=str2bool, default=True)
     p.add_argument("--bf16", type=str2bool, default=True,
                    help="bfloat16 tile compute (f32 Gaussian blend)")
+    p.add_argument("--pallas_k2", type=str2bool, default=True,
+                   help="stride-1 3x3x3 convs and trilinear upsamples through the "
+                        "hand-written CUDA kernels (csrc/conv3x3_gn.cu, csrc/resize3d.cu); "
+                        "false runs their plain PyTorch versions")
+    p.add_argument("--fused_gn", type=str2bool, default=True,
+                   help="GN -> ReLU through the hand-written CUDA kernel (csrc/gn_relu.cu); "
+                        "false runs its plain PyTorch version")
+    p.add_argument("--bd", type=str2bool, default=True,
+                   help="accepted, changes nothing: the voxel path is the reference")
+    p.add_argument("--mesh", type=str, default="",
+                   help="data-parallel mesh; not ported yet (ROADMAP queue 1, DDP): "
+                        "a non-empty value raises")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
+
+
+def reject_mesh(mesh: str) -> None:
+    """A non-empty ``--mesh`` raises: data parallelism is not ported yet."""
+    if mesh:
+        raise NotImplementedError("--mesh: data-parallel training and evaluation are not "
+                                  "ported yet (ROADMAP.md queue 1, DDP for --mesh)")
 
 
 def _save_qualitative_png(save_path: str, sample, pred: np.ndarray) -> None:
@@ -96,27 +127,34 @@ def _save_qualitative_png(save_path: str, sample, pred: np.ndarray) -> None:
 
 
 def _load_members(args, device):
-    """One model per comma-separated checkpoint path. Class tokens are not
+    """One model per comma-separated checkpoint path (an empty path: the
+    latest checkpoint in the working directory). Class tokens are not
     needed: with token_update='post' they feed only the attention maps."""
     from multimodal_pl_tpu_torch.convert import load_feam_state_dict, read_checkpoint
     from multimodal_pl_tpu_torch.models import UNet3DFEAM
+    from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint
 
+    impl = {True: "kernel", False: "plain"}
     members = []
     for pth in [p for p in args.reload_path.split(",") if p] or [""]:
         model = UNet3DFEAM(num_classes=args.num_classes, weight_std=args.weight_std,
-                           deep_up=args.deep_up,
+                           deep_up=args.deep_up, conv_impl=impl[args.pallas_k2],
+                           gn_impl=impl[args.fused_gn],
                            generator=torch.Generator().manual_seed(1234))
-        if args.reload_from_checkpoint and pth and os.path.exists(pth):
-            print(f"loading from checkpoint: {pth}")
-            load_feam_state_dict(model, read_checkpoint(pth))
-        elif args.reload_from_checkpoint:
-            print(f"File not exists in the reload path: {pth}")
+        if args.reload_from_checkpoint:
+            path = pth or latest_checkpoint(".")
+            if path and os.path.exists(path):
+                print(f"loading from checkpoint: {path}")
+                load_feam_state_dict(model, read_checkpoint(path))
+            else:
+                print(f"File not exists in the reload path: {pth}")
         members.append(model.to(device).eval())
     return members
 
 
 def main(argv=None):
     args = get_arguments().parse_args(argv)
+    reject_mesh(args.mesh)
 
     from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
     from multimodal_pl_tpu_torch.data.nifti import write_nifti

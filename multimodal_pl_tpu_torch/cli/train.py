@@ -8,7 +8,8 @@ It accepts every flag of the JAX CLI. Differences:
   only when asked for (the kernels' plain versions then run);
 - ``--pallas_gn`` / ``--pallas_k2`` select the hand-written CUDA kernels
   (true, the default) or their plain PyTorch versions (false), which on the
-  GPU serve tests only;
+  GPU serve tests only (``--pallas_k2`` covers the convs and the trilinear
+  upsamples);
 - ``--mesh`` (non-empty) raises NotImplementedError: data-parallel training
   is queued in ROADMAP.md;
 - ``--device_data`` (``data/device_cache.py``): ``auto`` (the default)
@@ -21,7 +22,8 @@ It accepts every flag of the JAX CLI. Differences:
 
 Checkpoints (``ckpt_<step>.pt`` in ``--snapshot_dir``) hold the whole train
 state; ``--reload_from_checkpoint true`` resumes from ``--reload_path`` or
-the latest one there.
+the latest one there, which may also be an orbax ``ckpt_<step>/`` of
+``mpl-train``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import os
 
 import numpy as np
 
-from multimodal_pl_tpu_torch.cli.evaluate import resolve_device, str2bool
+from multimodal_pl_tpu_torch.cli.evaluate import reject_mesh, resolve_device, str2bool
 
 
 def get_arguments() -> argparse.ArgumentParser:
@@ -106,9 +108,10 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--bd", type=str2bool, default=False,
                    help="accepted, changes nothing: the voxel path is the reference")
     p.add_argument("--pallas_k2", type=str2bool, default=True,
-                   help="stride-1 3x3x3 convs through the hand-written CUDA kernel "
-                        "(csrc/conv3x3_gn.cu); false runs its plain PyTorch version, "
-                        "which on the GPU serves tests only")
+                   help="stride-1 3x3x3 convs and trilinear upsamples through the "
+                        "hand-written CUDA kernels (csrc/conv3x3_gn.cu, csrc/resize3d.cu); "
+                        "false runs their plain PyTorch versions, which on the GPU serve "
+                        "tests only")
     p.add_argument("--cache_data", type=str2bool, default=False,
                    help="memoize prepared volumes in host RAM")
     p.add_argument("--train_refiner", type=str2bool, default=True,
@@ -126,16 +129,10 @@ def get_arguments() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(args) -> None:
-    if args.mesh:
-        raise NotImplementedError("--mesh: data-parallel training is not ported yet "
-                                  "(ROADMAP.md queue 1, DDP for --mesh)")
-
-
 def main(argv=None):
     """Returns the final train state."""
     args = get_arguments().parse_args(argv)
-    _not_ported(args)
+    reject_mesh(args.mesh)
     device = resolve_device(args.device)
 
     import torch

@@ -8,8 +8,15 @@
   discriminators (their ``blockN``/``min_blockN``/``head`` names).
 - :func:`train_state_from_jax` carries a whole JAX ``TrainState`` across as
   the port's :class:`~multimodal_pl_tpu_torch.train.state.TrainState`.
-- :func:`load_feam_state_dict` loads such a dict (a reference ``.pth`` or an
-  ``.npz`` written by :func:`save_npz`) into the port's model with
+- :func:`read_orbax_train_state` reads a JAX ``TrainState`` that the JAX
+  package's ``train/checkpoint.py`` wrote (orbax, a ``ckpt_<step>/``
+  directory) with ``tensorstore`` alone, and carries it across as the
+  port's ``TrainState``;
+- :func:`read_checkpoint` gives the segmenter's state_dict from any of the
+  formats a user holds: a reference ``.pth``, an ``.npz`` written by
+  :func:`save_npz`, a ``ckpt_<step>.pt`` of ``mpl-train-torch`` or a
+  ``ckpt_<step>/`` of ``mpl-train``;
+- :func:`load_feam_state_dict` loads such a dict into the port's model with
   ``strict=True``, after stripping DataParallel's ``module.`` prefix, and
   returns the class tokens ``class_token{1,2,3}`` when present.
 
@@ -22,7 +29,11 @@ layer, keeps its name).
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import re
+import types
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -100,13 +111,61 @@ def load_feam_state_dict(model: torch.nn.Module, sd: Mapping
     return tokens or None
 
 
+def read_orbax_train_state(path: str) -> TrainState:
+    """The JAX ``TrainState`` in an orbax checkpoint directory (``ckpt_<step>/``
+    of ``multimodal_pl_tpu/train/checkpoint.py``, OCDBT-backed zarr) as the
+    port's TrainState of f32 CPU tensors. Each array is opened with
+    ``tensorstore`` under its tree path (the keys of ``_METADATA``'s
+    ``tree_metadata`` joined by '.'); neither orbax nor JAX is imported."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(f"reading the orbax checkpoint {path} needs the 'tensorstore' "
+                          "package, which is not installed") from e
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt"):
+        raise ValueError(f"{path}: only OCDBT orbax checkpoints are read")
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    tree: dict = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        spec = {"driver": driver, "kvstore": {"driver": "ocdbt", "base": f"file://{path}",
+                                              "path": ".".join(keys) + "/"}}
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = ts.open(spec, open=True).result().read().result()
+    fields = {f.name for f in dataclasses.fields(TrainState)}
+    if set(tree) != fields:
+        raise ValueError(f"{path}: tree {sorted(tree)} is not a TrainState {sorted(fields)}")
+    tree["momentum"] = (tree["momentum"]["0"], tree["momentum"]["1"])
+    return train_state_from_jax(types.SimpleNamespace(**tree))
+
+
+def _with_tokens(sd: Mapping, tokens: Mapping) -> Dict[str, torch.Tensor]:
+    out = dict(sd)
+    out.update({_TOKEN_KEYS[k]: v for k, v in tokens.items() if k in _TOKEN_KEYS})
+    return out
+
+
 def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A state_dict from a reference ``.pth`` or from an ``.npz`` written by
-    :func:`save_npz`."""
+    """The segmenter's state_dict (with the class tokens as
+    ``class_token{1,2,3}`` where the checkpoint holds them) from a reference
+    ``.pth``, an ``.npz`` written by :func:`save_npz`, a ``ckpt_<step>.pt``
+    that ``mpl-train-torch`` wrote (its ``params`` and ``tokens``) or a
+    ``ckpt_<step>/`` orbax directory that ``mpl-train`` wrote."""
+    if os.path.isdir(path):
+        state = read_orbax_train_state(path)
+        return _with_tokens(state.params, state.tokens)
     if path.endswith(".npz"):
         with np.load(path) as z:
             return {k: torch.from_numpy(z[k]) for k in z.files}
-    return dict(torch.load(path, map_location="cpu", weights_only=True))
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if {f.name for f in dataclasses.fields(TrainState)} <= set(blob):
+        return _with_tokens(blob["params"], blob["tokens"])
+    return dict(blob)
 
 
 def save_npz(path: str, sd: Mapping[str, torch.Tensor]) -> None:

@@ -12,7 +12,8 @@ the classifier head. Parameter names are the reference ``state_dict``'s
 
 The routing by grad mode is :mod:`multimodal_pl_tpu_torch.models.blocks`'s;
 the stride-1 conv1 runs ``conv3x3_train`` while autograd records and
-``conv3x3_gn`` with the prologue off otherwise.
+``conv3x3_gn`` with the prologue off otherwise. ``conv_impl`` also routes
+the five x2 upsamples (four with their skip added) to the resize kernels.
 """
 
 from __future__ import annotations
@@ -76,8 +77,9 @@ class RefinerUNet3D(nn.Module):
         skip2 = x = self.layer2(x)
         skip3 = x = self.layer3(x)
         x = self.fusionConv(self.layer4(x))
-        x = self.x8_resb(upsample_trilinear(x, 2) + skip3)
-        x = self.x4_resb(upsample_trilinear(x, 2) + skip2)
-        x = self.x2_resb(upsample_trilinear(x, 2) + skip1)
-        x = self.x1_resb(upsample_trilinear(x, 2) + skip0)
-        return upsample_trilinear(self.precls_conv(x), 2)
+        impl = self.conv_impl
+        x = self.x8_resb(upsample_trilinear(x, 2, skip3, impl))
+        x = self.x4_resb(upsample_trilinear(x, 2, skip2, impl))
+        x = self.x2_resb(upsample_trilinear(x, 2, skip1, impl))
+        x = self.x1_resb(upsample_trilinear(x, 2, skip0, impl))
+        return upsample_trilinear(self.precls_conv(x), 2, impl=impl)

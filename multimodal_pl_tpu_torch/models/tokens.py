@@ -51,6 +51,16 @@ def masked_class_means(x: torch.Tensor, mask: torch.Tensor, num_fg: int):
     return means.to(x.dtype), counts
 
 
+def ema_update_tokens(tok: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                      alpha: float) -> torch.Tensor:
+    """One scale's EMA: tok (L, C) moves by alpha towards the masked class
+    means of x (B, d, h, w, C) under mask (B, d, h, w) labels at x's
+    resolution; a class without a voxel keeps its token."""
+    means, counts = masked_class_means(x, mask, tok.shape[0])
+    upd = tok * (1.0 - alpha) + alpha * means.to(tok.dtype)
+    return torch.where((counts > 0)[:, None], upd, tok)
+
+
 def renew_tokens(tokens: Dict[str, torch.Tensor], features: Sequence[torch.Tensor],
                  fmask: torch.Tensor, alpha: float = 0.01) -> Dict[str, torch.Tensor]:
     """The token EMA (reference model.renew_token). features: the decoder
@@ -58,11 +68,8 @@ def renew_tokens(tokens: Dict[str, torch.Tensor], features: Sequence[torch.Tenso
     labels where the prediction and the supervised label agree."""
     new = dict(tokens)
     for name, x in zip(list(tokens), features):
-        tok = tokens[name]
         m = resize_nearest(fmask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
-        means, counts = masked_class_means(x, m, tok.shape[0])
-        upd = tok * (1.0 - alpha) + alpha * means.to(tok.dtype)
-        new[name] = torch.where((counts > 0)[:, None], upd, tok)
+        new[name] = ema_update_tokens(tokens[name], x, m, alpha)
     return new
 
 

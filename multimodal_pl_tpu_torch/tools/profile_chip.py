@@ -19,8 +19,13 @@ import os
 import sys
 import time
 
+RESIZE_KERNEL = "resize3d kernel (trilinear upsample + skip, gradient)"
+LIBRARY_RESIZE = "library trilinear resize (F.interpolate and its gradient)"
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
+    (RESIZE_KERNEL, ("resize3d_",)),
+    (LIBRARY_RESIZE, ("upsample_trilinear",)),
+    ("nearest resize (index_select)", ("index_select", "indexSelect")),
     ("conv3x3_gn kernel", ("conv3x3_gn_kernel",)),
     ("conv3x3_gn split-K reduction", ("splitk_reduce",)),
     ("GroupNorm fold statistics kernel", ("gn_fold_",)),
@@ -30,7 +35,6 @@ CATEGORIES = (
     ("library conv (cuDNN: stem, stride 2, 1x1, dgrad, wgrad)",
      ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop")),
     ("GEMM", ("gemm", "cutlass", "cublas", "sm90_xmma")),
-    ("trilinear / nearest resize", ("upsample", "interp")),
     ("reductions", ("reduce", "Reduce")),
     ("memcpy / memset", ("memcpy", "Memcpy", "memset", "Memset")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "Elementwise")),

@@ -15,6 +15,12 @@ parameters. Under autograd they take the training route of
 takes the fused ``conv3x3_gn`` route, the counterpart of the JAX step's
 ``pallas_inference_scope`` (step.py:132-150). Nothing in the step copies a
 value to the host.
+
+The step is deterministic on the card, as the JAX step is on the TPU: the
+trilinear upsamples' gradient is the gather-form ``resize3d`` kernel (the
+library's gradient adds with atomics), and the hand-written kernels sum in
+fixed orders. Two runs from one state and batch give the same bits
+(``chip_smoke.py`` phase 9; ``tools/determinism.py``).
 """
 
 from __future__ import annotations

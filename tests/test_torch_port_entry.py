@@ -1,7 +1,8 @@
 """The port's boundary and entry point: importing every port module, and
-parsing both CLIs' arguments, loads no JAX and no module of the JAX package,
-and mpl-evaluate-torch runs end to end on a synthetic AMOS-layout set on the
-CPU.
+parsing both CLIs' arguments (mpl-evaluate's --pallas_k2, --fused_gn, --bd
+and --mesh among them), loads no JAX and no module of the JAX package;
+mpl-evaluate-torch accepts every flag of mpl-evaluate with mpl-train-torch's
+semantics, and runs end to end on a synthetic AMOS-layout set on the CPU.
 """
 
 import csv
@@ -31,6 +32,8 @@ for name in names:
     importlib.import_module(name)
 from multimodal_pl_tpu_torch.cli import evaluate, train
 evaluate.get_arguments().parse_args([])
+evaluate.get_arguments().parse_args(["--pallas_k2", "false", "--fused_gn", "false", "--bd",
+                                     "true", "--mesh", "data:2"])
 train.get_arguments().parse_args([])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "multimodal_pl_tpu")
@@ -58,6 +61,39 @@ def test_port_imports_no_jax():
             "multimodal_pl_tpu_torch.utils.flops"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
+
+
+def test_evaluate_cli_accepts_every_jax_flag():
+    from multimodal_pl_tpu.cli.evaluate import get_arguments as jax_arguments
+
+    def opts(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    assert opts(jax_arguments()) <= opts(evaluate.get_arguments())
+    args = evaluate.get_arguments().parse_args([])
+    assert args.pallas_k2 and args.fused_gn and args.bd and args.mesh == ""
+
+
+@pytest.mark.parametrize("flags,conv_impl,gn_impl", [
+    ([], "kernel", "kernel"),
+    (["--pallas_k2", "false"], "plain", "kernel"),
+    (["--fused_gn", "false"], "kernel", "plain"),
+    (["--pallas_k2", "false", "--fused_gn", "false", "--bd", "false"], "plain", "plain"),
+    (["--bd", "true"], "kernel", "kernel"),
+])
+def test_evaluate_kernel_flags_choose_the_route(flags, conv_impl, gn_impl):
+    """--pallas_k2 false builds the members with conv_impl='plain' (convs and
+    upsamples), --fused_gn false with gn_impl='plain'; --bd changes nothing."""
+    args = evaluate.get_arguments().parse_args(
+        flags + ["--reload_from_checkpoint", "false", "--device", "cpu"])
+    (member,) = evaluate._load_members(args, torch.device("cpu"))
+    block = member.layer1[0]
+    assert (member.conv_impl, block.conv_impl, block.gn_impl) == (conv_impl, conv_impl, gn_impl)
+
+
+def test_evaluate_mesh_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        evaluate.main(["--mesh", "data:2", "--device", "cpu"])
 
 
 def test_str2bool():

@@ -97,9 +97,50 @@ def test_init_class_tokens_shapes():
     assert all(torch.equal(toks[k], again[k]) for k in toks)
 
 
-def test_token_update_pre_not_ported():
-    with pytest.raises(NotImplementedError):
-        UNet3DFEAM(token_update="pre")
+@pytest.mark.parametrize("labels", [NC, 9])
+def test_token_update_pre_matches_jax(jax_params, labels):
+    """feam2 (token_update='pre') against the JAX UNet3DFEAM(token_update=
+    'pre') and against the functional reference feam2 forward of
+    tests/test_torch_parity.py (B = 1): logits, attention maps and deep heads
+    at TOL, the updated tokens at the parity test's rtol 1e-4 / atol 1e-5.
+    With labels 9 the classes 9..13 are absent from the mask, and their
+    token rows pass through bit for bit. Without a mask the forward is
+    feam3's: the same logits, the tokens unchanged."""
+    from test_torch_parity import torch_feam2_forward_train
+
+    params, jtokens = jax_params
+    rng = np.random.default_rng(labels)
+    x = rng.standard_normal((1, D, H, W, 1)).astype(np.float32)
+    mask = rng.integers(0, labels, (1, D, H, W)).astype(np.int32)
+    jmodel = JUNet3DFEAM(num_classes=NC, weight_std=True, s2d=False, bd=False,
+                         token_update="pre")
+    jlogits, jattn, jdeep, _, jnew = jmodel.apply(params, jnp.asarray(x), jtokens,
+                                                  jnp.asarray(mask))
+
+    model = UNet3DFEAM(num_classes=NC, token_update="pre")
+    sd = state_dict_from_jax(params, jtokens)
+    tokens = load_feam_state_dict(model, sd)
+    with torch.no_grad():
+        logits, attn, deep, _, new = model(_t(x), tokens, _t(mask))
+        post = model(_t(x), tokens)
+        flogits, fattn, fdeep, fnew = torch_feam2_forward_train(
+            _t(x).permute(0, 4, 1, 2, 3), sd, tokens, _t(mask)[:, None].float())
+
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    np.testing.assert_allclose(logits.permute(0, 4, 1, 2, 3).numpy(), flogits.numpy(), **TOL)
+    for got, want, ref in zip(attn, jattn, fattn):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.permute(0, 4, 1, 2, 3).numpy(), ref.numpy(), **TOL)
+    for got, want, ref in zip(deep, jdeep, fdeep):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.permute(0, 4, 1, 2, 3).numpy(), ref.numpy(), **TOL)
+    for k in tokens:
+        np.testing.assert_allclose(new[k].numpy(), np.asarray(jnew[k]), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(new[k].numpy(), fnew[k].numpy(), rtol=1e-4, atol=1e-5)
+        assert not torch.equal(new[k][:labels - 1], tokens[k][:labels - 1])
+        assert torch.equal(new[k][labels - 1:], tokens[k][labels - 1:])
+        assert torch.equal(post[4][k], tokens[k])
+    assert torch.equal(post[0], logits)
 
 
 @pytest.fixture(scope="module")

@@ -1,9 +1,10 @@
 """mpl-train-torch end to end on the CPU: two short epochs at the tiny
 geometry on synthetic AMOS-layout cases write the JSONL log and a
 checkpoint, and a second run resumes from it, on the host batch path and on
-the device batch path (``--device_data``) with ``--remat``. The device
-flags of both CLIs raise where CUDA is missing, and the unported option
-(``--mesh``) raises."""
+the device batch path (``--device_data``) with ``--remat``; mpl-evaluate-torch
+loads the checkpoint a full-width run writes, named or as the latest. The
+device flags of both CLIs raise where CUDA is missing, and the unported
+option (``--mesh``) raises in both."""
 
 import json
 import os
@@ -145,6 +146,35 @@ def test_train_cli_device_data_auto_takes_the_pipeline(data, tmp_path, capsys, m
 def test_train_cli_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(flag + ["--device", "cpu"])
+
+
+def test_evaluate_cli_loads_what_train_cli_writes(data, tmp_path, monkeypatch, capsys):
+    """One epoch of mpl-train-torch at the evaluator's model (the flagship's
+    widths; a 32^3 patch, so a 5-conv discriminator) writes ckpt_<step>.pt; mpl-evaluate-torch loads its
+    segmenter parameters exactly, by --reload_path and, with an empty
+    --reload_path, as the latest checkpoint in the working directory, and
+    runs end to end on it."""
+    snap = str(tmp_path / "snap")
+    state = train.main(data + ["--input_size", "32,32,32", "--bf16", "false", "--num_epochs",
+                               "1", "--random_scale", "false", "--device_data", "false",
+                               "--disc_depth", "5",
+                               "--snapshot_dir", snap, "--device", "cpu"])
+    path = latest_checkpoint(snap)
+    assert path is not None and path.endswith(".pt")
+    eval_args = data[:4] + ["--input_size", "32,32,32", "--bf16", "false", "--device", "cpu",
+                            "--save_path", str(tmp_path / "out")]
+    monkeypatch.chdir(snap)
+    for reload_path in (path, ""):
+        args = evaluate.get_arguments().parse_args(eval_args + ["--reload_path", reload_path])
+        (member,) = evaluate._load_members(args, torch.device("cpu"))
+        assert f"loading from checkpoint: {path if reload_path else './' + os.path.basename(path)}" \
+            in capsys.readouterr().out
+        got = member.state_dict()
+        assert sorted(got) == sorted(state.params)
+        assert all(torch.equal(got[k], state.params[k]) for k in got)
+    csv_path = evaluate.main(eval_args + ["--reload_path", path])
+    with open(csv_path) as f:
+        assert len(f.read().strip().splitlines()) >= 2  # the header and the test cases
 
 
 def test_train_cli_accepts_every_jax_flag():
