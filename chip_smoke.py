@@ -20,7 +20,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    max|k - p| <= 1e-2 * max|p|, with kernel, plain and library
    (F.group_norm + ReLU) times and the bound; then the resize3d forward
    kernel (x2 upsample + skip) vs plain at the decoder's 4 shapes, with the
-   same limit;
+   same limit, and a summary line of the resize shapes below half their
+   bound or slower than the library (printed, not checked);
 3. the whole model on one bf16 tile batch, kernels vs plain (conv_impl and
    gn_impl 'plain') with the same weights: relative L2 error of the logits
    <= 3e-2, 22 conv calls (18 fused, 4 prologue-off), 18 fold calls, 17
@@ -51,7 +52,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    gradient-free rows): y and dx within 1e-2 * max|plain| of the plain
    versions in f32, the backward the same bits twice; kernel ms, plain ms,
    TFLOP/s or GB/s; then the same at every shape of a B = 3 step that
-   B = 1 does not launch (the segmenter's at batch 3);
+   B = 1 does not launch (the segmenter's at batch 3), and the resize's
+   summary line as in phase 2;
 7. the training path: the train step at the full geometry from one seeded
    state and batch, kernel vs plain (total loss, segmenter gradients), then
    3 kernel steps: finite losses, moving parameters, finite tokens, the exact
@@ -88,12 +90,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the same epochs with --device_data false: patches/s of both;
 11. the re-profile: tools/profile_chip.py over one serving tile batch and
    the B = 1, B = 3 and B = 3 remat steps, device ms by kernel category; no
-   library trilinear-resize kernel runs in any of them.
+   library trilinear-resize kernel runs in any of them, and resize3d
+   launches 4 kernels per serving tile batch and 29 per step (17 forward,
+   12 backward).
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
 gn_relu call one where a sample fits a thread-block cluster, else two; a
-resize3d backward call three, one per axis).
+resize3d call, forward or backward, one).
 Kernel, plain and library times are device times per call (CUDA graph
 replays); bounds are max(FLOP / peak, bytes / 3.35e12) per call (H100 SXM
 dense bf16 989e12 for the convs and GroupNorm, f32 67e12 for the resize's
@@ -164,6 +168,10 @@ REMAT_LEAF_REL = 1e-3
 RESIZE_TAP_FLOP = 16         # 8 weighted taps per output element (forward and gradient)
 # the attention maps' channels (num_classes - 1) and dtype (f32 scores)
 AMAP_C, AMAP_DTYPE = NC - 1, "float32"
+# resize3d kernels per profiled call (phase 11): 4 upsamples per serving tile
+# batch; 17 forward and 12 backward calls per train step, one launch each
+PROFILE_RESIZE_LAUNCHES = {"serving_tile_batch": 4, "train_step": 29, "train_step_b3": 29,
+                           "train_step_b3_remat": 29}
 AMOS_GRID = (256, 256, 128)  # (H, W, D) of an AMOS case after preprocessing
 AMOS_CASES = (14, 2)         # synthetic CT, MRI cases: 11 train (3 steps of B = 3), 1 valid
 
@@ -616,12 +624,15 @@ def phase_resize(dev, results, fwd_keys, bwd_keys=()):
                    "skip": bool(not backward and key[7]), "backward": backward,
                    "max_abs_err": err, "max_abs_plain": scale, "bits_equal": bits,
                    "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   **resize_bound(key)}
+                   **resize_bound(key),
+                   "moved_bytes": resize.moved_bytes((b, d, h, w, c), factor, dt.itemsize,
+                                                     backward, bool(not backward and key[7]))}
             row["gb_s"] = row["bytes"] / row["ms"] / 1e6
             print(f"  resize3d {'backward' if backward else 'forward '} x{factor} B={b} C={c:3d} "
                   f"{dtype} @{d}x{h}x{w}{' + skip' if row['skip'] else ''}: max|k-p|={err:.3g} "
                   f"(max|p|={scale:.3g}){', same bits twice' if backward and bits else ''}  "
-                  f"kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s at the one-read bound)  "
+                  f"kernel {row['ms']:.3f} ms ({row['gb_s']:.0f} GB/s at the one-read bound; "
+                  f"moves {row['moved_bytes'] / row['bytes']:.2f}x those bytes)  "
                   f"plain {row['plain_ms']:.3f} ms  library {row['library_ms']:.3f} ms  bound "
                   f"{row['bound_ms']:.3f} ms", flush=True)
             check(err <= 1e-2 * scale and bits, f"resize3d kernel disagrees with plain at {row}")
@@ -630,6 +641,25 @@ def phase_resize(dev, results, fwd_keys, bwd_keys=()):
             del k1, p
     torch.cuda.empty_cache()
     return tables
+
+
+def resize_summary(tag, tables):
+    """Phases 2 and 6: one line naming the resize3d shapes that run below half
+    their bound (bound_ms / ms < 0.5) and those slower than the library's
+    call; informational, no check."""
+    rows = [r for table in tables for r in table.values()]
+
+    def name(r):
+        return (f"{'bwd' if r['backward'] else 'fwd'} x{r['factor']} B={r['b']} C={r['c']} "
+                f"{r['dtype']} @{'x'.join(map(str, r['dhw']))}")
+
+    slow = [f"{name(r)} ({r['bound_ms'] / r['ms']:.2f})" for r in rows
+            if r["bound_ms"] < 0.5 * r["ms"]]
+    lost = [f"{name(r)} ({r['ms']:.3f} vs {r['library_ms']:.3f} ms)" for r in rows
+            if r["ms"] > r["library_ms"]]
+    print(f"  resize3d {tag}: {len(rows)} shapes; below half the bound (share of it): "
+          f"{'; '.join(slow) or 'none'}; slower than the library: {'; '.join(lost) or 'none'}",
+          flush=True)
 
 
 def phase_gn_bwd(dev, results, gn_keys):
@@ -1357,7 +1387,9 @@ def phase_profile():
               flush=True)
         check(out[name]["library_resize"] is None,
               f"{name} ran the library's trilinear resize: {out[name]['library_resize']}")
-        check(rz["launches"] > 0, f"{name} ran no resize3d kernel")
+        want = PROFILE_RESIZE_LAUNCHES[name]
+        check(round(rz["launches"]) == want,
+              f"{name} launched {rz['launches']} resize3d kernels per call, not {want}")
     return out
 
 
@@ -1436,6 +1468,7 @@ def run_phases(amos_data) -> int:
     print("[2] resize3d forward kernel vs plain at every upsample of the tile batch", flush=True)
     serving_resize = serving_resize_keys()
     resize_serving_table = phase_resize(dev, results, serving_resize)[0]
+    resize_summary("serving", [resize_serving_table])
     phase_done("serving kernels")
 
     # ---- phase 3: whole model, kernel vs plain -----------------------------
@@ -1591,6 +1624,7 @@ def run_phases(amos_data) -> int:
                                       set(rbwd3) - set(resize_bwd_table))
     resize_fwd_table.update(more_fwd)
     resize_bwd_table.update(more_bwd)
+    resize_summary("train steps B = 1 and 3", [resize_fwd_table, resize_bwd_table])
     phase_done("training kernels")
 
     # ---- phase 7: the training path ------------------------------------------

@@ -336,12 +336,20 @@ def test_model_gradients_on_the_card_match_plain(cuda_device):
     ((3, 8, 8, 8, 2), 2, False, torch.bfloat16),    # the refiner's logits
     ((2, 4, 3, 5, 24), 2, True, torch.float32),     # the refiner's width, f32
     ((1, 1, 2, 1, 6), 4, True, torch.bfloat16),     # axes of length 1, C = 6
+    ((2, 3, 5, 3, 13), 8, False, torch.float32),    # 13 f32 channels, odd H and W, x8 ...
+    ((2, 3, 7, 9, 13), 4, False, torch.float32),    # ... x4
+    ((1, 5, 11, 13, 13), 2, True, torch.float32),   # ... x2 (+ skip)
+    ((4, 6, 9, 11, 2), 2, False, torch.bfloat16),   # the logits, B = 4, odd extents
+    ((2, 3, 3, 1, 6), 2, True, torch.bfloat16),     # a 24-byte output row (C = 6, W = 1)
+    ((2, 4, 12, 12, 256), 2, False, torch.bfloat16),  # a backward plan above 48 KB
+    ((1, 3, 17, 19, 32), 2, True, torch.bfloat16),  # extents the tiles do not divide
 ])
 def test_resize_kernels_match_plain(cuda_device, shape, factor, skip, dtype):
     """resize3d forward (with the skip fused) and backward against the plain
     versions in f32 on the same inputs: max|k - p| <= 1e-2 * max|p| (bf16
     output rounding; f32 summation order); one counted call each; the
-    backward gives the same bits twice (gather form, no atomics)."""
+    backward is one kernel launch that allocates nothing but dx, and gives
+    the same bits twice (gather form, no atomics)."""
     g = torch.Generator(device="cpu").manual_seed(6)
     b, d, h, w, c = shape
     out = (b, d * factor, h * factor, w * factor, c)
@@ -350,7 +358,12 @@ def test_resize_kernels_match_plain(cuda_device, shape, factor, skip, dtype):
     dy = torch.randn(out, generator=g).to(cuda_device, dtype)
     resize.reset_launches()
     y = resize.upsample_forward(x, factor, sk)
+    torch.cuda.synchronize()
+    kernels = resize.kernel_launches()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     dx = resize.upsample_backward(dy, factor)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 1  # dx alone
+    assert resize.kernel_launches() - kernels == 1
     dx2 = resize.upsample_backward(dy, factor)
     torch.cuda.synchronize()
     assert sum(resize.launches.values()) == 1 and sum(resize.bwd_launches.values()) == 2
