@@ -66,7 +66,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    resumed epoch; then mpl-evaluate-torch on the checkpoint it wrote
    (ckpt_<step>.pt), with the default flags and with --pallas_k2 false
    --fused_gn false --bd true: label maps that agree (>= 0.95, phase 4's
-   limit);
+   limit); then the default evaluation through ``torchrun --nproc_per_node 1``
+   with --mesh data:1 (NCCL, the sharded predictor): the same label maps bit
+   for bit;
 9. the production step (run_amos_atlas_final.sh: B = 3, 64 x 192 x 192,
    bf16, the StepConfig defaults) from a state one step past the init:
    torch's deterministic mode as a detector (warn_only) over one gradient
@@ -87,12 +89,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    mpl-train-torch --batch_size 3 --device_data true --remat true for 2
    epochs with validation after each, a checkpoint and a resumed epoch
    (every step's train-conv and gn_relu-backward calls as in phase 9), and
-   the same epochs with --device_data false: patches/s of both;
+   the same epochs with --device_data false: patches/s of both; then the
+   first --device_data true run again through ``torchrun --nproc_per_node 1``
+   with --mesh data:1 (NCCL; the data-parallel step over one rank): its final
+   checkpoint bit-equal to the run without --mesh, and its patches/s;
 11. the re-profile: tools/profile_chip.py over one serving tile batch and
    the B = 1, B = 3 and B = 3 remat steps, device ms by kernel category; no
    library trilinear-resize kernel runs in any of them, and resize3d
    launches 4 kernels per serving tile batch and 29 per step (17 forward,
-   12 backward).
+   12 backward);
+12. data parallelism on the one card: the device ms of one step's two
+   gradient averages over a one-rank NCCL group (flatten, all_reduce,
+   unflatten) at the flagship's widths and the B = 3 step's ms with and
+   without that group (in turns); two ranks spawned on the card over
+   gloo (NCCL takes one rank per card; gloo stages CUDA tensors through the
+   host, so its times are not NCCL's), one step each at B = 3 per rank and
+   the flagship defaults on shards of different data and supervised organs
+   from one seeded state: both ranks' new states bit-equal to the reference
+   built in this process ((g0 + g1) / 2 of the per-shard gradients, the step's
+   updates, tokens from the summed class statistics), the loss the shards'
+   mean, each rank's kernel calls one step's; then the two ranks' sharded
+   predictor over phase 4's volume against the one-rank predictor: blended
+   logits within 1e-5, argmax agreement >= 0.9999, rank 0's kernel calls
+   those of 2 tile batches and rank 1's of one (its batch of pad duplicates
+   is skipped).
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
@@ -144,6 +164,9 @@ GN_SOURCE = "multimodal_pl_tpu_torch/csrc/gn_relu.cu"
 RESIZE_SOURCE = "multimodal_pl_tpu_torch/csrc/resize3d.cu"
 PEAK_F32 = 67e12      # H100 SXM f32 outside the tensor cores (the resize's arithmetic)
 PATCH = (64, 192, 192)      # the training patch (StepConfig / cli/train.py defaults)
+REPO = os.path.dirname(os.path.abspath(__file__))
+DP_PRED_ABS = 1e-5           # two-rank vs one-rank blended logits: f32 sum order only
+DP_PRED_AGREE = 0.9999       # two-rank vs one-rank argmax agreement
 # Kernel vs plain train step. In bf16 the segmenter gradients of the plain
 # step and of the kernel step each sit 0.22 (relative Frobenius norm) from
 # the f32 plain step's at random init, so two bf16 routes differ by ~0.13
@@ -238,6 +261,21 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def torchrun(module: str, argv, cwd: str, timeout: float = 900) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    module argv`` from ``cwd`` with this repository on PYTHONPATH (one rank,
+    NCCL on the card); raises unless it exits 0. Returns its output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", module, *argv]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, f"torchrun -m {module} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
 
 
 def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
@@ -1096,7 +1134,8 @@ def phase_train_cli(tmp):
     then epoch 7 resumed from it. Then mpl-evaluate-torch on the checkpoint
     it wrote, over the train split's cases, with the default flags and with
     --pallas_k2 false --fused_gn false --bd true: the two label maps agree
-    on >= 0.95 of the voxels (phase 4's limit)."""
+    on >= 0.95 of the voxels (phase 4's limit); then the default evaluation
+    through torchrun with --mesh data:1: the same label maps bit for bit."""
     from multimodal_pl_tpu_torch.cli import evaluate, train
     from multimodal_pl_tpu_torch.data.nifti import read_nifti
     from multimodal_pl_tpu_torch.ops import conv3x3
@@ -1159,8 +1198,27 @@ def phase_train_cli(tmp):
           f"maps, kernels vs --pallas_k2 false --fused_gn false --bd true agree on {agree:.5f} "
           f"of the voxels (worst case)", flush=True)
     check(agree >= 0.95, f"evaluator label maps kernels vs plain agree on {agree} < 0.95")
+
+    # the same evaluation through torchrun with --mesh data:1 (one NCCL rank,
+    # the sharded predictor): the label maps of the run without --mesh, bit
+    # for bit
+    out_dir = os.path.join(tmp, "eval_mesh")
+    t0 = time.perf_counter()
+    torchrun("multimodal_pl_tpu_torch.cli.evaluate",
+             ["--data_dir", img_dir, "--atlas_path", atlas_path, "--reload_path", trained,
+              "--save_path", out_dir, "--usage", "train", "--print", "true", "--mesh", "data:1"],
+             tmp)
+    mesh_s = time.perf_counter() - t0
+    mesh_maps = {f: read_nifti(os.path.join(out_dir, f)).data
+                 for f in sorted(os.listdir(out_dir)) if f.endswith("_pred.nii.gz")}
+    same = sorted(mesh_maps) == sorted(maps["kernels"]) and all(
+        np.array_equal(mesh_maps[f], maps["kernels"][f]) for f in mesh_maps)
+    print(f"[8] torchrun mpl-evaluate-torch --mesh data:1 (NCCL): {len(mesh_maps)} label maps, "
+          f"bit-equal to the run without --mesh: {same} ({mesh_s:.1f} s)", flush=True)
+    check(same, "mpl-evaluate-torch --mesh data:1 label maps differ from the run without --mesh")
     return {"steps": int(resumed.step), "losses": losses, "validation": vals,
-            "evaluated_checkpoint": os.path.basename(trained), "eval_label_agreement": agree}
+            "evaluated_checkpoint": os.path.basename(trained), "eval_label_agreement": agree,
+            "mesh_eval_bit_equal": same, "mesh_eval_s": mesh_s}
 
 
 def _ulp_bf16(x):
@@ -1308,7 +1366,8 @@ def phase_production_cli(tmp, data, step_calls):
     epoch 7 resumed; every step launched exactly phase 9's calls of the
     remat step (conv3x3 train and gn_relu backward). Then the same epochs on
     host batches (--device_data false, no validation). Patches/s of both
-    from the epoch records."""
+    from the epoch records. Then the first run again through torchrun with
+    --mesh data:1 (``phase_mesh_train``)."""
     from collections import Counter
 
     from multimodal_pl_tpu_torch.cli import train
@@ -1356,13 +1415,196 @@ def phase_production_cli(tmp, data, step_calls):
             check([r["step"] for r in vals] == [5, 6, 7]
                   and all(np.isfinite(v) for r in vals for v in r.values()
                           if isinstance(v, float)), f"validation records {vals}")
-        rec.update(losses=losses, validation=vals, s=time.perf_counter() - t0)
+        rec.update(losses=losses, validation=vals, s=time.perf_counter() - t0,
+                   first_run_steps=steps)
         out[f"device_data_{path}"] = rec
         print(f"[10] mpl-train-torch --batch_size {PROD_B} --remat true --device_data {path}: "
               f"{rec['steps']} steps, patches/s per epoch {[round(v, 3) for v in rec['patches_per_sec']]}"
               f"{', validation after epochs 5-7, checkpoint, resumed' if path == 'true' else ''} "
               f"({rec['s']:.1f} s)", flush=True)
+    out["mesh_data_1"] = phase_mesh_train(tmp, base, out["device_data_true"])
     return out
+
+
+def phase_mesh_train(tmp, base, plain):
+    """Phase 10, last part: the --device_data true run's first part (epochs 5
+    and 6 of 7, validation after each) through torchrun with --mesh data:1
+    (one NCCL rank: the data-parallel step, its gradient averages an
+    all_reduce over one rank): its final checkpoint holds the bits of the
+    run without --mesh. Patches/s of both."""
+    from multimodal_pl_tpu_torch.tools.spawn import states_unequal
+    from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    snap = os.path.join(tmp, "snap_mesh")
+    t0 = time.perf_counter()
+    torchrun("multimodal_pl_tpu_torch.cli.train",
+             base + ["--device_data", "true", "--snapshot_dir", snap, "--val_pred_every", "1",
+                     "--start_epoch", "5", "--num_epochs", "7", "--mesh", "data:1"], tmp)
+    secs = time.perf_counter() - t0
+    got = restore_checkpoint(latest_checkpoint(snap))
+    steps = plain["first_run_steps"]
+    want = restore_checkpoint(os.path.join(tmp, "snap_true", f"ckpt_{steps}.pt"))
+    bad = states_unequal(got, want)
+    with open(os.path.join(snap, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    pps = [r["epoch/patches_per_sec"] for r in recs if "epoch/patches_per_sec" in r]
+    print(f"[10] torchrun mpl-train-torch --mesh data:1 (NCCL) --batch_size {PROD_B} --remat true "
+          f"--device_data true, epochs 5-6: step {int(got.step)}, final state bit-equal to the "
+          f"run without --mesh: {not bad}; patches/s per epoch {[round(v, 3) for v in pps]} "
+          f"(without --mesh {[round(v, 3) for v in plain['patches_per_sec'][:2]]}) ({secs:.1f} s)",
+          flush=True)
+    check(int(got.step) == steps and not bad,
+          f"--mesh data:1 ended at step {int(got.step)} (want {steps}); leaves that differ "
+          f"from the run without --mesh: {bad[:10]}")
+    return {"steps": int(got.step), "bit_equal": not bad, "patches_per_sec": pps, "s": secs}
+
+
+def dp_shard(cfg, seed: int, organ: int, batch: int = PROD_B) -> dict:
+    """A seeded batch at the training patch in the loop's layout and dtypes,
+    on the CPU; ``organ`` supervised."""
+    from multimodal_pl_tpu_torch.train.loop import to_device
+
+    rng = np.random.default_rng(seed)
+    nc = cfg.num_classes
+    sup = np.zeros(nc, np.float32)
+    sup[organ] = 1
+    host = {"image": rng.standard_normal((batch, *PATCH, 1)).astype(np.float32),
+            "label": rng.integers(0, nc, (batch, *PATCH)).astype(np.uint8),
+            "catlas": rng.random((nc - 1, *PATCH)).astype(np.float32), "sup_mask": sup,
+            "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)}
+    return to_device(host, cfg, "cpu")
+
+
+def phase_data_parallel(dev, results, weights, vol, serving_calls):
+    """Phase 12: data parallelism on the one card.
+
+    NCCL over one rank: the device ms of one step's two gradient averages
+    (flatten, all_reduce, unflatten) at the flagship's widths, and the B = 3
+    step with and without the group in turns (5 timed steps each of P C C
+    P). Two spawned
+    ranks on the card over gloo (NCCL takes one rank per card): one step
+    each at the production B = 3 per rank and the flagship defaults
+    (64 x 192 x 192, bf16, kernels, no remat) from
+    one seeded state on shards with different data and supervised organs,
+    both bit-equal to the reference built here before the spawn (per-shard
+    gradients (g0 + g1) / 2, the step's updates, tokens from the summed
+    class statistics), the loss the mean of the two shards', each rank's
+    kernel calls those of one step; then the sharded predictor over phase 4's
+    volume (12 windows in 3 batches of 4: rank 0 runs batches 0 and 2, rank
+    1 batch 1) against the one-rank predictor: blended
+    logits within DP_PRED_ABS, argmax agreement >= DP_PRED_AGREE, rank 0's
+    kernel calls those of 2 tile batches, rank 1's of one. gloo stages CUDA
+    tensors through the host: its times are not a measure of NCCL."""
+    from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from multimodal_pl_tpu_torch.models import UNet3DFEAM
+    from multimodal_pl_tpu_torch.parallel import init_data_parallel, make_sharded_train_step
+    from multimodal_pl_tpu_torch.tools import spawn
+    from multimodal_pl_tpu_torch.train.state import StepConfig, create_train_state
+
+    out = {}
+    cfg = StepConfig(compute_dtype=torch.bfloat16)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg)
+    with init_data_parallel("data:1", dev) as dp:
+        check(torch.distributed.get_backend(dp.group) == "nccl", "one-rank group is not NCCL")
+        out["nccl_one_rank"] = spawn.collective_times(spawn.grad_trees(state.to(dev)), 20)
+        # the B = 3 step with and without the one-rank group, in turns
+        single = make_step(dev, cfg)
+        sharded = make_sharded_train_step(single.model, single.refiner, single.disc, cfg,
+                                          dp.group)
+        args = (state.to(dev), {k: v.to(dev) for k, v in dp_shard(cfg, 23, 5).items()},
+                torch.tensor(5e-4, device=dev), torch.tensor(0.05, device=dev))
+        step_ms = {"without": [], "one_rank": []}
+        for name in ("without", "one_rank", "one_rank", "without"):
+            fn = single if name == "without" else sharded
+            for i in range(6):
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                if i:
+                    step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        out["nccl_one_rank_step_ms"] = step_ms
+        del single, sharded, args
+        torch.cuda.empty_cache()
+    for name, t in zip(("(params, rparams) gradients", "discriminator gradients + 2 losses"),
+                       out["nccl_one_rank"]):
+        print(f"[12] NCCL, one rank, per step: {name}: {t['mb']:.2f} MB in {t['leaves']} leaves; "
+              f"all_reduce and divide {t['all_reduce_ms']:.4f} ms, flatten and unflatten "
+              f"{t['flatten_unflatten_ms']:.4f} ms (the step's tree_mean; stream time, host "
+              f"gaps included)", flush=True)
+    print(f"[12] B={PROD_B} step, P C C P x 5: median {np.median(step_ms['without']):.1f} ms "
+          f"without a group, {np.median(step_ms['one_rank']):.1f} ms over a one-rank NCCL "
+          f"group", flush=True)
+
+    lr, wf = 5e-4, 0.05
+    shards = [dp_shard(cfg, 21, 5), dp_shard(cfg, 22, 3)]
+    t0 = time.perf_counter()
+    step = make_step(dev, cfg)
+    on_dev = [{k: v.to(dev) for k, v in b.items()} for b in shards]
+    ref, rm = spawn.reference_step(step, state.to(dev), on_dev,
+                                   torch.tensor(lr, device=dev), torch.tensor(wf, device=dev))
+    ref = spawn._cpu(ref)
+    shard_losses = [float(step.grads(state.to(dev), b, torch.tensor(wf, device=dev))[0])
+                    for b in on_dev]
+    del step, on_dev
+    torch.cuda.empty_cache()
+    ranks = spawn.run(spawn.dp_step, 2, cfg, state, shards, lr, wf, "cuda:0", 10,
+                      backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    expected = step_expected(cfg, PROD_B)
+    for r, (got, m, launches, _) in enumerate(ranks):
+        bad = spawn.states_unequal(got, ref)
+        check(not bad, f"rank {r}: leaves that differ from the averaged reference: {bad[:10]}")
+        check(m["loss"] == float(rm["loss"]), f"rank {r} loss {m['loss']} != {float(rm['loss'])}")
+        check(abs(m["loss"] - float(np.mean(shard_losses))) <= 1e-6 * abs(m["loss"]),
+              f"rank {r} loss {m['loss']} is not the shards' mean {shard_losses}")
+        for k, want in expected.items():
+            check(launches[k] == want, f"rank {r} {k} calls {dict(launches[k])} != one step's")
+    gloo = ranks[0][3]
+    print(f"[12] 2 gloo ranks on one card, one B={PROD_B} step each at {PATCH}, bf16, kernels: "
+          f"both ranks bit-equal to the (g0 + g1) / 2 reference; loss {ranks[0][1]['loss']:.6f} = "
+          f"mean of the shards' {[round(v, 6) for v in shard_losses]}; kernel calls per rank = "
+          f"one step's ({sum(sum(c.values()) for c in expected.values())}); gloo all_reduce of "
+          f"{gloo[0]['mb']:.2f} MB {gloo[0]['all_reduce_ms']:.2f} ms (host-staged, not NCCL) "
+          f"({secs:.1f} s)", flush=True)
+    out["two_rank_step"] = {"bit_equal": True, "loss": ranks[0][1]["loss"],
+                            "shard_losses": shard_losses, "gloo_times": gloo, "s": secs,
+                            "launches": {k: sum(v.values()) for k, v in ranks[0][2].items()}}
+    rank0_step_calls = ranks[0][2]
+    del ranks, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = UNet3DFEAM(deep_up=True).to(dev).eval()
+    model.load_state_dict(weights)
+    single = SlidingWindowPredictor(lambda t: model(t, aux=False), TILE, NC,
+                                    window_batch=WINDOW_BATCH, compute_dtype=torch.bfloat16,
+                                    device=dev, output="logits")(vol).cpu()
+    del model
+    torch.cuda.empty_cache()
+    run_key = ("logits", WINDOW_BATCH)
+    (outs, same0, l0), (_, same1, l1) = spawn.run(
+        spawn.dp_predict, 2, {"deep_up": True}, {k: v.cpu() for k, v in weights.items()},
+        [vol], TILE, (run_key,), "cuda:0", torch.bfloat16, backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    got = outs[run_key][0]
+    err = (got - single).abs().max().item()
+    agree = (got.argmax(-1) == single.argmax(-1)).float().mean().item()
+    print(f"[12] 2 gloo ranks on one card, sharded predictor over {VOL} (12 windows, batches of "
+          f"{WINDOW_BATCH}, bf16 tiles): blended logits max |2 ranks - 1| {err:.3e}, argmax "
+          f"agreement {agree:.6f}, ranks bit-equal {same0 and same1} ({secs:.1f} s)", flush=True)
+    check(same0 and same1, "the sharded predictor's ranks returned different bits")
+    check(tuple(got.shape) == (*VOL, NC) and err <= DP_PRED_ABS,
+          f"sharded vs single blended logits: max abs {err} > {DP_PRED_ABS}")
+    check(agree >= DP_PRED_AGREE, f"sharded vs single argmax agreement {agree} < {DP_PRED_AGREE}")
+    for r, (launches, batches) in enumerate(((l0[run_key], 2), (l1[run_key], 1))):
+        for k, per_batch in serving_calls.items():
+            want = {key: n * batches for key, n in per_batch.items()}
+            check(dict(launches[k]) == want, f"sharded serving rank {r} {k} calls "
+                  f"{dict(launches[k])} != {batches} tile batches' {want}")
+    out["two_rank_serving"] = {"max_abs_err": err, "argmax_agreement": agree, "s": secs,
+                               "launches": {k: sum(v.values()) for k, v in l0[run_key].items()}}
+    results["data_parallel"] = out
+    return rank0_step_calls, l0[run_key]
 
 
 def phase_profile():
@@ -1655,6 +1897,13 @@ def run_phases(amos_data) -> int:
     results["profile"] = phase_profile()
     phase_done("profile")
 
+    # ---- phase 12: data parallelism on the one card ---------------------------
+    dp_step_run, dp_serving_run = phase_data_parallel(
+        dev, results, model.state_dict(), vol,
+        {"conv3x3": per_forward, "fold": per_forward_fold, "gn_relu": per_forward_gn,
+         "resize": per_forward_resize})
+    phase_done("data parallel")
+
     def entry(name, source, replaces, launches, rows):
         """One kernels-line entry from (calls, per-shape row) pairs."""
         libs = [n * r["library_ms"] for n, r in rows if r["library_ms"] is not None]
@@ -1725,6 +1974,50 @@ def run_phases(amos_data) -> int:
                              RESIZE_BWD, sum(run["resize_backward"].values()),
                              [(n, resize_bwd_table[k])
                               for k, n in expected["resize_backward"].items()]))
+    # this slice's paths: rank 0 of the two-rank step and of sharded serving
+    # (per volume: 2 of its 3 tile batches), each row the single path's
+    tag = "rank 0 of 2 (gloo, one card)"
+    dp_expected = step_expected(StepConfig(), PROD_B)
+    for name, spec_set, replaces in (
+            ("conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)",
+             train_specs, K2), ("conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass",
+                                (conv3x3.FUSED,), K2_GN)):
+        kernels.append(entry(f"{name}, data-parallel B={PROD_B} train step, {tag}", SOURCE,
+                             replaces,
+                             sum(n for k, n in dp_step_run["conv3x3"].items()
+                                 if k[0] in spec_set),
+                             step_rows(spec_set, dp_expected["conv3x3"])))
+    for key, name, src, replaces, table_ in (
+            ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU, gn_table),
+            ("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16)", GN_SOURCE, GN_BWD,
+             gn_bwd_table),
+            ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
+             fold_step_table),
+            ("resize", "resize3d forward (upsample [+ skip])", RESIZE_SOURCE, RESIZE,
+             resize_fwd_table),
+            ("resize_backward", "resize3d backward (gather form)", RESIZE_SOURCE, RESIZE_BWD,
+             resize_bwd_table)):
+        kernels.append(entry(f"{name}, data-parallel B={PROD_B} train step, {tag}", src, replaces,
+                             sum(dp_step_run[key].values()),
+                             [(n, table_[k]) for k, n in dp_expected[key].items()]))
+    kernels += [entry(f"conv3x3_gn fused GN-ReLU prologue, sharded serving, {tag}", SOURCE, BDX,
+                      sum(n for k, n in dp_serving_run["conv3x3"].items()
+                          if k[0] == conv3x3.FUSED),
+                      [(n, serving[k]) for k, n in per_forward.items() if k[0] == conv3x3.FUSED]),
+                entry(f"conv3x3_gn prologue off, sharded serving, {tag}", SOURCE, BK3,
+                      sum(n for k, n in dp_serving_run["conv3x3"].items()
+                          if k[0] == conv3x3.PROLOGUE_OFF),
+                      [(n, serving[k]) for k, n in per_forward.items()
+                       if k[0] == conv3x3.PROLOGUE_OFF]),
+                entry(f"group_norm_fold statistics (gn_fold_bf16), sharded serving, {tag}",
+                      GN_SOURCE, GN_FOLD, sum(dp_serving_run["fold"].values()),
+                      [(n, fold_table[k]) for k, n in per_forward_fold.items()]),
+                entry(f"gn_relu forward (gn_relu_fwd_bf16), sharded serving, {tag}", GN_SOURCE,
+                      GN_RELU, sum(dp_serving_run["gn_relu"].values()),
+                      [(n, gn_serving_table[k]) for k, n in serving_gn.items()]),
+                entry(f"resize3d forward (x2 upsample + skip), sharded serving, {tag}",
+                      RESIZE_SOURCE, RESIZE, sum(dp_serving_run["resize"].values()),
+                      [(n, resize_serving_table[k]) for k, n in serving_resize.items()])]
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

@@ -20,13 +20,24 @@ versions then run).
 It accepts every flag of ``mpl-evaluate``: ``--pallas_k2`` and
 ``--fused_gn`` choose the hand-written CUDA kernels (true, the default) or
 their plain PyTorch versions, as ``mpl-train-torch``'s ``--pallas_k2`` and
-``--pallas_gn`` do; ``--bd`` is accepted and changes nothing; a non-empty
-``--mesh`` raises NotImplementedError (data parallelism is not ported yet).
+``--pallas_gn`` do; ``--bd`` is accepted and changes nothing.
+
+``--mesh data:N`` spreads each volume's windows over N processes, one per
+GPU, started by ``torchrun --standalone --nproc_per_node N -m
+multimodal_pl_tpu_torch.cli.evaluate --mesh data:N ...`` (NCCL; gloo with
+``--device cpu``; the predictor is
+:class:`multimodal_pl_tpu_torch.parallel.sharded_infer.ShardedSlidingWindowPredictor`).
+Every rank reads every case and gets the same prediction; rank 0 alone
+writes the CSV, the NIfTI files and the PNGs, and prints. ``--mesh`` with
+``--tta`` raises ValueError: the JAX CLI drops ``--tta`` under ``--mesh``
+without a word, which the port does not copy. A ``space`` axis raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 
@@ -92,18 +103,11 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--bd", type=str2bool, default=True,
                    help="accepted, changes nothing: the voxel path is the reference")
     p.add_argument("--mesh", type=str, default="",
-                   help="data-parallel mesh; not ported yet (ROADMAP queue 1, DDP): "
-                        "a non-empty value raises")
+                   help="data-parallel mesh data:N: the windows of each volume spread over "
+                        "N ranks under torchrun, one per GPU (NCCL; gloo on the CPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
-
-
-def reject_mesh(mesh: str) -> None:
-    """A non-empty ``--mesh`` raises: data parallelism is not ported yet."""
-    if mesh:
-        raise NotImplementedError("--mesh: data-parallel training and evaluation are not "
-                                  "ported yet (ROADMAP.md queue 1, DDP for --mesh)")
 
 
 def _save_qualitative_png(save_path: str, sample, pred: np.ndarray) -> None:
@@ -126,7 +130,7 @@ def _save_qualitative_png(save_path: str, sample, pred: np.ndarray) -> None:
     plt.close(fig)
 
 
-def _load_members(args, device):
+def _load_members(args, device, say=print):
     """One model per comma-separated checkpoint path (an empty path: the
     latest checkpoint in the working directory). Class tokens are not
     needed: with token_update='post' they feed only the attention maps."""
@@ -144,27 +148,40 @@ def _load_members(args, device):
         if args.reload_from_checkpoint:
             path = pth or latest_checkpoint(".")
             if path and os.path.exists(path):
-                print(f"loading from checkpoint: {path}")
+                say(f"loading from checkpoint: {path}")
                 load_feam_state_dict(model, read_checkpoint(path))
             else:
-                print(f"File not exists in the reload path: {pth}")
+                say(f"File not exists in the reload path: {pth}")
         members.append(model.to(device).eval())
     return members
 
 
 def main(argv=None):
+    """Returns the path of the per-case CSV (on every rank under ``--mesh``)."""
     args = get_arguments().parse_args(argv)
-    reject_mesh(args.mesh)
+    if not args.mesh:
+        return _evaluate(args, resolve_device(args.device), None)
+    if args.tta:
+        raise ValueError("--mesh with --tta: the sharded predictor has no flip TTA (the JAX "
+                         "CLI ignores --tta under --mesh); drop one of them")
+    from multimodal_pl_tpu_torch.parallel.mesh import init_data_parallel
 
+    with init_data_parallel(args.mesh, resolve_device(args.device)) as dp:
+        return _evaluate(args, dp.device, dp)
+
+
+def _evaluate(args, device, dp):
+    """The evaluation on ``device``; dp: this rank's DataParallel, or None."""
     from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
     from multimodal_pl_tpu_torch.data.nifti import write_nifti
     from multimodal_pl_tpu_torch.infer.metrics import label_scores, organ_scores_atlas
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
 
-    device = resolve_device(args.device)
+    lead = dp is None or dp.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     d, h, w = map(int, args.input_size.split(","))
     nfg = args.num_classes - 1
-    members = _load_members(args, device)
+    members = _load_members(args, device, say)
 
     def fwd(tiles):
         # logits only (aux=False): the EAMs and deep heads do not feed them
@@ -173,22 +190,35 @@ def main(argv=None):
 
     atlas = np.load(args.atlas_path) if os.path.exists(args.atlas_path) else None
     use_atlas = args.use_atlas_threshold and atlas is not None
-    predictor = SlidingWindowPredictor(
-        fwd, (d, h, w), args.num_classes, window_batch=args.window_batch, tta=args.tta,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device,
-        output="logits" if use_atlas else "argmax")
+    common = dict(window_batch=args.window_batch,
+                  compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device,
+                  output="logits" if use_atlas else "argmax")
+    if dp:
+        from multimodal_pl_tpu_torch.parallel.sharded_infer import (
+            ShardedSlidingWindowPredictor,
+        )
+
+        predictor = ShardedSlidingWindowPredictor(fwd, (d, h, w), args.num_classes, dp.group,
+                                                  **common)
+    else:
+        predictor = SlidingWindowPredictor(fwd, (d, h, w), args.num_classes, tta=args.tta,
+                                           **common)
 
     ds = AMOSDataset(args.data_dir, crop_size=(d, h, w), usage=args.usage, atlas=atlas)
-    print(f"{len(ds)} {args.usage} cases")
+    say(f"{len(ds)} {args.usage} cases")
 
-    os.makedirs(args.save_path, exist_ok=True)
     csv_path = os.path.join(args.save_path, "per_case_dice.csv")
     totals = {name: {"dice": np.zeros(nfg), "senc": np.zeros(nfg), "spec": np.zeros(nfg),
                      "cases": []} for name in ("CT", "MRI")}
+    if lead:
+        os.makedirs(args.save_path, exist_ok=True)
 
-    with open(csv_path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["case"] + [f"organ{i}" for i in range(nfg)])
+    # every rank predicts every case (the ranks share each volume's windows);
+    # rank 0 alone scores, writes and prints
+    with open(csv_path, "w", newline="") if lead else contextlib.nullcontext() as f:
+        writer = csv.writer(f) if lead else None
+        if lead:
+            writer.writerow(["case"] + [f"organ{i}" for i in range(nfg)])
         pending: list = []
 
         def _volumes():
@@ -199,6 +229,8 @@ def main(argv=None):
 
         for out in predictor.predict_iter(_volumes()):
             s = pending.pop(0)
+            if not lead:
+                continue
             label = torch.from_numpy(s.label).to(device)[None]
             if use_atlas:
                 catlas = torch.from_numpy(s.catlas).to(device).movedim(0, -1)[None]
@@ -222,6 +254,8 @@ def main(argv=None):
                             pred_np, (1, 1, 2))
                 _save_qualitative_png(args.save_path, s, pred_np)
 
+    if not lead:
+        return csv_path
     for name, acc in totals.items():
         mean = acc["dice"] / max(len(acc["cases"]), 1)
         print(f"Sum results {name}")

@@ -10,8 +10,15 @@ It accepts every flag of the JAX CLI. Differences:
   (true, the default) or their plain PyTorch versions (false), which on the
   GPU serve tests only (``--pallas_k2`` covers the convs and the trilinear
   upsamples);
-- ``--mesh`` (non-empty) raises NotImplementedError: data-parallel training
-  is queued in ROADMAP.md;
+- ``--mesh data:N`` trains data-parallel over N processes, one per GPU,
+  started by ``torchrun --standalone --nproc_per_node N -m
+  multimodal_pl_tpu_torch.cli.train --mesh data:N ...`` (NCCL; gloo with
+  ``--device cpu``). Each rank's device is ``cuda:LOCAL_RANK`` unless
+  ``--device`` names an index. A mesh that is not the world size raises
+  ValueError; a ``space`` axis raises NotImplementedError. Every rank runs
+  the step on its own batches (``--batch_size`` is per rank, as in the JAX
+  CLI) and holds the same state; rank 0 alone validates, logs and writes
+  checkpoints;
 - ``--device_data`` (``data/device_cache.py``): ``auto`` (the default)
   holds the training set on ``--device`` and assembles batches there when
   every case has the same shape, else prints why and takes the host batch
@@ -33,7 +40,7 @@ import os
 
 import numpy as np
 
-from multimodal_pl_tpu_torch.cli.evaluate import reject_mesh, resolve_device, str2bool
+from multimodal_pl_tpu_torch.cli.evaluate import resolve_device, str2bool
 
 
 def get_arguments() -> argparse.ArgumentParser:
@@ -88,8 +95,8 @@ def get_arguments() -> argparse.ArgumentParser:
                    help="recompute the segmenter's encoder and decoder stages in the "
                         "backward instead of keeping their activations")
     p.add_argument("--mesh", type=str, default="",
-                   help="data-parallel mesh; not ported yet (ROADMAP queue 1, DDP): "
-                        "a non-empty value raises")
+                   help="data-parallel mesh data:N: N ranks under torchrun, one per GPU "
+                        "(NCCL; gloo on the CPU); --batch_size is per rank")
     p.add_argument("--model_base", type=int, default=32,
                    help="U-Net stage-width base (reference: 32)")
     p.add_argument("--model_layers", type=str, default="1,2,2,2,2",
@@ -130,11 +137,18 @@ def get_arguments() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Returns the final train state."""
+    """Returns the final train state (on every rank under ``--mesh``)."""
     args = get_arguments().parse_args(argv)
-    reject_mesh(args.mesh)
-    device = resolve_device(args.device)
+    if not args.mesh:
+        return _train(args, resolve_device(args.device), None)
+    from multimodal_pl_tpu_torch.parallel.mesh import init_data_parallel
 
+    with init_data_parallel(args.mesh, resolve_device(args.device)) as dp:
+        return _train(args, dp.device, dp)
+
+
+def _train(args, device, dp):
+    """The run on ``device``; dp: this rank's DataParallel, or None."""
     import torch
 
     from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
@@ -148,6 +162,9 @@ def main(argv=None):
     )
     from multimodal_pl_tpu_torch.train.step import make_train_step
     from multimodal_pl_tpu_torch.utils.prng import seedfix
+
+    rank, world = (dp.rank, dp.world) if dp else (0, 1)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     d, h, w = map(int, args.input_size.split(","))
     generator = seedfix(args.seed)
@@ -166,10 +183,10 @@ def main(argv=None):
     if args.reload_from_checkpoint:
         path = args.reload_path or latest_checkpoint(args.snapshot_dir)
         if path and os.path.exists(path):
-            print(f"loading from checkpoint: {path}")
+            say(f"loading from checkpoint: {path}")
             state = restore_checkpoint(path)
         else:
-            print(f"File not exists in the reload path: {args.reload_path}")
+            say(f"File not exists in the reload path: {args.reload_path}")
     state = state.to(device)
     model, refiner, disc = (m.to(device) for m in build_models(scfg))
 
@@ -179,7 +196,8 @@ def main(argv=None):
                            supervision_csv=sup_csv, seed=args.seed, cache=args.cache_data)
     valid_ds = AMOSDataset(args.data_dir, crop_size=(d, h, w), usage="valid", atlas=atlas,
                            supervision_csv=sup_csv)
-    print(f"{len(train_ds)} train / {len(valid_ds)} valid cases on {device}")
+    say(f"{len(train_ds)} train / {len(valid_ds)} valid cases on {device}"
+        + (f", rank 0 of {world}" if dp else ""))
 
     lcfg = LoopConfig(num_epochs=args.num_epochs, batch_size=args.batch_size,
                       learning_rate=args.learning_rate, power=args.power,
@@ -190,16 +208,23 @@ def main(argv=None):
     if args.device_data != "false":
         try:
             device_pipe = DeviceDataPipeline(train_ds, compute_dtype=scfg.compute_dtype,
-                                             seed=args.seed, device=device)
-            print(f"device data pipeline: {len(train_ds)} cases resident on {device} "
-                  f"({device_pipe.images.nbytes / 1e6:.0f} MB images)")
+                                             seed=args.seed, device=device, rank=rank,
+                                             world=world)
+            say(f"device data pipeline: {len(train_ds)} cases resident on {device} "
+                f"({device_pipe.images.nbytes / 1e6:.0f} MB images)")
         except ValueError as e:
             if args.device_data == "true":
                 raise
-            print(f"device data pipeline unavailable ({e}); using host path")
-    step_fn = make_train_step(model, refiner, disc, scfg)
+            say(f"device data pipeline unavailable ({e}); using host path")
+    if dp:
+        from multimodal_pl_tpu_torch.parallel.sharded_step import make_sharded_train_step
+
+        step_fn = make_sharded_train_step(model, refiner, disc, scfg, dp.group)
+    else:
+        step_fn = make_train_step(model, refiner, disc, scfg)
     return train_loop(state, step_fn, model, train_ds, valid_ds, scfg, lcfg, device,
-                      log_every=args.log_every, device_pipe=device_pipe)
+                      log_every=args.log_every, device_pipe=device_pipe, rank=rank,
+                      world=world)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,8 @@
-"""Intensity augmentation (the reference's batchgenerators recipe), a copy of
-``intensity_augment`` from ``multimodal_pl_tpu/data/augment.py``.
+"""Intensity augmentation (the reference's batchgenerators recipe): the
+``intensity_augment`` of ``multimodal_pl_tpu/data/augment.py`` as two steps,
+its random draws in its order (:func:`draw_intensity`) and their application
+(:func:`apply_intensity`), so that a data-parallel rank can draw another
+rank's batch without building it.
 
 Reference recipe (MOTSDataset.py:33-52): per-sample, applied on the collated
 batch, keys follow batchgenerators semantics:
@@ -18,31 +21,52 @@ import numpy as np
 from scipy.ndimage import gaussian_filter
 
 
-def intensity_augment(image: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """image: (B, D, H, W, C). Returns augmented copy."""
-    out = image.copy()
-    b = out.shape[0]
-    for i in range(b):
-        x = out[i]
+def draw_intensity(rng: np.random.Generator, batch: int, shape) -> list:
+    """The random draws of ``intensity_augment`` for ``batch`` samples of
+    ``shape`` (D, H, W, C), in its order: per sample, a dict of what each
+    transform that fires takes (the noise array itself, the blur sigma or
+    None per channel, factors, per-channel shifts or None)."""
+    out = []
+    for _ in range(batch):
+        d = {}
         if rng.random() < 0.1:  # GaussianNoiseTransform(p_per_sample=0.1)
             var = rng.uniform(0, 0.1)
-            x = x + rng.normal(0.0, np.sqrt(var), x.shape).astype(x.dtype)
+            d["noise"] = rng.normal(0.0, np.sqrt(var), shape)
         if rng.random() < 0.2:  # GaussianBlurTransform
-            for c in range(x.shape[-1]):
-                if rng.random() < 0.5:
-                    sigma = rng.uniform(0.5, 1.0)
-                    x[..., c] = gaussian_filter(x[..., c], sigma)
+            d["blur"] = [rng.uniform(0.5, 1.0) if rng.random() < 0.5 else None
+                         for _ in range(shape[-1])]
         if rng.random() < 0.15:  # BrightnessMultiplicativeTransform((0.75, 1.25))
-            x = x * rng.uniform(0.75, 1.25)
+            d["scale"] = rng.uniform(0.75, 1.25)
         if rng.random() < 0.15:  # BrightnessTransform(0.0, 0.1, per_channel p=0.5)
-            for c in range(x.shape[-1]):
-                if rng.random() < 0.5:
-                    x[..., c] = x[..., c] + rng.normal(0.0, 0.1)
+            d["shift"] = [rng.normal(0.0, 0.1) if rng.random() < 0.5 else None
+                          for _ in range(shape[-1])]
         if rng.random() < 0.15:  # ContrastAugmentationTransform(preserve_range)
-            factor = rng.uniform(0.75, 1.25)
+            d["contrast"] = rng.uniform(0.75, 1.25)
+        out.append(d)
+    return out
+
+
+def apply_intensity(image: np.ndarray, draws: list) -> np.ndarray:
+    """image: (B, D, H, W, C) with ``draw_intensity``'s draws for it.
+    Returns the augmented copy."""
+    out = image.copy()
+    for i, d in enumerate(draws):
+        x = out[i]
+        if "noise" in d:
+            x = x + d["noise"].astype(x.dtype)
+        for c, sigma in enumerate(d.get("blur", ())):
+            if sigma is not None:
+                x[..., c] = gaussian_filter(x[..., c], sigma)
+        if "scale" in d:
+            x = x * d["scale"]
+        for c, shift in enumerate(d.get("shift", ())):
+            if shift is not None:
+                x[..., c] = x[..., c] + shift
+        if "contrast" in d:
             mn, mx = x.min(), x.max()
             mean = x.mean()
-            x = (x - mean) * factor + mean
+            x = (x - mean) * d["contrast"] + mean
             x = np.clip(x, mn, mx)
         out[i] = x
     return out
+

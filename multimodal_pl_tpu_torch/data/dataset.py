@@ -29,7 +29,7 @@ from typing import Dict, Iterator, Optional, Sequence
 import numpy as np
 
 from multimodal_pl_tpu_torch.data.atlas import resize_atlas_nearest
-from multimodal_pl_tpu_torch.data.augment import intensity_augment
+from multimodal_pl_tpu_torch.data.augment import apply_intensity, draw_intensity
 from multimodal_pl_tpu_torch.data.nifti import read_nifti
 from multimodal_pl_tpu_torch.data.supervision import (
     label_t_of,
@@ -198,6 +198,7 @@ class AMOSDataset:
         # per SURVEY §3.3); random crops/augs still re-sample per access
         self.cache = cache
         self._cache: Dict[int, tuple] = {}
+        self._shapes: Dict[int, tuple] = {}  # prepared (A0, A1, A2) shape per index
 
     def __len__(self):
         return len(self.files)
@@ -253,30 +254,46 @@ class AMOSDataset:
 
         image = truncate_intensity(image, cid)
         out = (cid, image, label, catlas)
+        self._shapes[index] = label.shape
         if self.cache:
             self._cache[index] = out
         return out
 
-    def __getitem__(self, index: int) -> Sample:
-        cid, image, label, catlas = self._prepared(index)
+    def _draw(self, shape) -> tuple:
+        """The random draws of one training sample of prepared ``shape``, in
+        the reference's order: crop corner (b, c, a), mirror flips per axis,
+        zoom factor or None."""
+        b = int(self.rng.integers(0, shape[0] - self.crop_h))
+        c = int(self.rng.integers(0, shape[1] - self.crop_w))
+        a = int(self.rng.integers(0, shape[2] - self.crop_d))
+        flips = [self.rng.random() < 0.5 for _ in range(3)] if self.mirror else []
+        zoom = (float(self.rng.uniform(0.9, 1.1))
+                if self.scale and self.rng.random() < 0.3 else None)
+        return (b, c, a), flips, zoom
 
-        if self.usage == "train":
-            b = int(self.rng.integers(0, label.shape[0] - self.crop_h))
-            c = int(self.rng.integers(0, label.shape[1] - self.crop_w))
-            a = int(self.rng.integers(0, label.shape[2] - self.crop_d))
+    def __getitem__(self, index: int) -> Sample:
+        prepared = self._prepared(index)
+        return self._sample(prepared, self._draw(prepared[2].shape)
+                            if self.usage == "train" else None)
+
+    def _sample(self, prepared, draw) -> Sample:
+        """The sample of ``prepared`` volumes with ``_draw``'s draws applied
+        (None: the whole volume)."""
+        cid, image, label, catlas = prepared
+
+        if draw is not None:
+            (b, c, a), flips, z = draw
             image = image[b : b + self.crop_h, c : c + self.crop_w, a : a + self.crop_d]
             label = label[b : b + self.crop_h, c : c + self.crop_w, a : a + self.crop_d]
             catlas = catlas[:, b : b + self.crop_h, c : c + self.crop_w, a : a + self.crop_d]
-            if self.mirror:
-                for ax in range(3):
-                    if self.rng.random() < 0.5:
-                        image = np.flip(image, ax)
-                        label = np.flip(label, ax)
-                        catlas = np.flip(catlas, ax + 1)
-            if self.scale and self.rng.random() < 0.3:
+            for ax, flip in enumerate(flips):
+                if flip:
+                    image = np.flip(image, ax)
+                    label = np.flip(label, ax)
+                    catlas = np.flip(catlas, ax + 1)
+            if z is not None:
                 from scipy.ndimage import zoom as nd_zoom
 
-                z = float(self.rng.uniform(0.9, 1.1))
                 shp = image.shape
                 image = nd_zoom(image, z, order=1)
                 label = nd_zoom(label, z, order=0)
@@ -302,13 +319,34 @@ class AMOSDataset:
 
     # ------------------------------------------------------------------ #
 
+    def _skip_batch(self, idxs, augment: bool) -> None:
+        """Draws what a batch of ``idxs`` would draw, and builds nothing."""
+        shapes = []
+        for j in idxs:
+            shape = self._shapes.get(int(j)) or self._prepared(int(j))[2].shape
+            if self.usage == "train":
+                self._draw(shape)
+                shape = (self.crop_h, self.crop_w, self.crop_d)
+            shapes.append((shape[2], shape[0], shape[1], 1))
+        if augment:
+            draw_intensity(self.rng, len(idxs), shapes[0])
+
     def batches(self, batch_size: int, shuffle: bool = True, augment: bool = True,
-                epochs: int = 1, prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+                epochs: int = 1, prefetch: int = 2, rank: int = 0,
+                world: int = 1) -> Iterator[Dict[str, np.ndarray]]:
         """Background-thread prefetching batch iterator (the Engine's
         DataLoader role, engine.py:34-55, collate my_collate MOTSDataset.py:54-67).
 
         Batches are dicts of stacked arrays; an un-augmented copy is kept as
         ``image_r`` like the reference collate.
+
+        rank, world: a data-parallel rank's share of the stream, as the JAX
+        loop deals the stream over its devices (``train/loop.py:171-180``):
+        batch i where ``i % world == rank``, without an incomplete last group
+        of ``world`` batches. Every rank draws the whole stream's random
+        numbers, so the ranks' streams stay the same, but builds only its own
+        batches: a batch of another rank costs its draws (and, the first time
+        a case comes up uncached, reading the case for its shape).
         """
         q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
         stop = object()
@@ -318,8 +356,13 @@ class AMOSDataset:
                 order = np.arange(len(self))
                 if shuffle:
                     self.rng.shuffle(order)
-                for i in range(0, len(order) - batch_size + 1, batch_size):
+                starts = range(0, len(order) - batch_size + 1, batch_size)
+                keep = len(starts) // world * world
+                for n, i in enumerate(starts):
                     idxs = order[i : i + batch_size]
+                    if n >= keep or n % world != rank:
+                        self._skip_batch(idxs, augment)
+                        continue
                     samples = [self[int(j)] for j in idxs]
                     image = np.stack([s.image for s in samples])
                     batch = {
@@ -333,7 +376,9 @@ class AMOSDataset:
                         "case_id": np.array([s.case_id for s in samples]),
                     }
                     if augment:
-                        batch["image"] = intensity_augment(batch["image"], self.rng)
+                        batch["image"] = apply_intensity(
+                            batch["image"], draw_intensity(self.rng, len(samples),
+                                                           image.shape[1:]))
                     q.put(batch)
             q.put(stop)
 

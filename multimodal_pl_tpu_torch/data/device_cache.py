@@ -41,7 +41,7 @@ _BLUR_R = 4  # kernel radius; scipy's truncate=4.0 at sigma<=1.0 rounds to <=4
 
 def draw_aug_params(rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:
     """Per-sample aug parameters with the exact control flow (probabilities,
-    draw order, single-channel inner loops) of data/augment.intensity_augment."""
+    draw order, single-channel inner loops) of data/augment.draw_intensity."""
     p = {k: np.zeros(batch, np.float32) for k in _AUG_KEYS}
     p["blur_sig"][:] = 0.75  # placeholder sigma for disabled rows (selected away)
     p["bm_f"][:] = 1.0
@@ -97,7 +97,7 @@ def _blur_axis(x: torch.Tensor, kern: torch.Tensor, ax: int) -> torch.Tensor:
 
 def intensity_augment_device(x: torch.Tensor, p: Dict[str, torch.Tensor],
                              generator: torch.Generator) -> torch.Tensor:
-    """The intensity recipe of data/augment.intensity_augment over a batch,
+    """The intensity recipe of data/augment.apply_intensity over a batch,
     each sample with its own parameters (the JAX package's vmap).
     x: (B, D, H, W) f32; p: {key of _AUG_KEYS: (B,) f32 tensor on x's
     device}; generator: a torch.Generator on x's device (the noise)."""
@@ -130,16 +130,23 @@ class DeviceDataPipeline:
     atlas serves all and every crop corner range is the same); otherwise, or
     with random-scale zoom (``ds.scale``), the constructor raises ValueError
     and callers take the host path. ``device`` defaults to the GPU and a
-    CUDA device raises where there is none. ``mesh`` (data-parallel
-    assembly) is not ported: a non-None value raises NotImplementedError.
+    CUDA device raises where there is none.
+
+    Data parallelism (``rank`` of ``world`` ranks, the JAX pipeline's
+    ``mesh``): every rank holds the whole prepared set on its own card and
+    draws the same host stream (same seed) for ``batch_size * world``
+    samples a step; rank r assembles row block r of each draw, and its
+    noise seed folds in r as JAX folds in ``axis_index`` (rank 0's is the
+    one-device seed). At ``world == 1`` the pipeline is the single-device
+    one, bit for bit.
     """
 
     def __init__(self, ds, compute_dtype: torch.dtype = torch.bfloat16, augment: bool = True,
-                 mirror: bool = False, seed: int = 0, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("DeviceDataPipeline(mesh=...): data-parallel batch "
-                                      "assembly is not ported yet (ROADMAP.md queue 1, DDP "
-                                      "for --mesh)")
+                 mirror: bool = False, seed: int = 0, device="cuda", rank: int = 0,
+                 world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a world of {world}")
+        self.rank, self.world = rank, world
         if getattr(ds, "scale", False):
             raise ValueError("random-scale zoom is host-path only")
         self.device = torch.device(device)
@@ -230,8 +237,10 @@ class DeviceDataPipeline:
                            for i, s, f in zip(idxs, starts, flips)])
         if self.augment:
             # the noise stream is keyed per batch number, as the JAX
-            # pipeline's fold_in(key, batch number)
-            key = np.random.SeedSequence([self.seed, nbatch]).generate_state(1, np.uint64)[0]
+            # pipeline's fold_in(key, batch number), and per rank r > 0, as
+            # its fold_in(key, axis_index) (rank 0 keeps the one-device stream)
+            entropy = [self.seed, nbatch] + ([self.rank] if self.rank else [])
+            key = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
             self._gen.manual_seed(int(key))
             pt = {k: torch.from_numpy(v).to(self.device) for k, v in p.items()}
             img = intensity_augment_device(img.float(), pt, self._gen)
@@ -243,7 +252,11 @@ class DeviceDataPipeline:
 
     def batches(self, batch_size: int, shuffle: bool = True,
                 epochs: int = 1) -> Iterator[Dict[str, torch.Tensor]]:
-        """Device batches of ``batch_size`` samples, ``len // batch_size``
-        per epoch, as ``AMOSDataset.batches`` yields them on the host."""
-        for draw in self.draws(batch_size, shuffle, epochs):
-            yield self.assemble(*draw)
+        """Device batches of ``batch_size`` samples, ``len // (batch_size *
+        world)`` per epoch, as ``AMOSDataset.batches`` yields them on the host
+        (grouped over the ranks, as the data-parallel loop groups them)."""
+        b, r = batch_size, self.rank
+        for idxs, starts, flips, p, nbatch in self.draws(b * self.world, shuffle, epochs):
+            rows = slice(r * b, (r + 1) * b)
+            yield self.assemble(idxs[rows], starts[rows], flips[rows],
+                                {k: v[rows] for k, v in p.items()}, nbatch)

@@ -5,8 +5,10 @@ Window geometry is the reference's: stride = ceil(tile * 3/4), edge windows
 clamped back inside the volume (evaluate_amos.py:215-239). Flip TTA folds the
 8 flip variants into the tile batch (:247-255). Volumes are zero-padded on
 the device to a bucket shape; count normalization makes the padded margins
-and the duplicate windows that fill the last batch exact no-ops, so bucketing
-never changes the result.
+exact no-ops, so bucketing never changes the result. Copies of the last
+window fill the last batch and are added like any window, as the JAX
+predictor adds them: where the last window overlaps another, each copy
+weighs it once more.
 
 The window-batch loop is a Python loop: tiles are sliced out of the device
 volume, run through the network as one batch, weighted by the Gaussian and
@@ -115,7 +117,6 @@ class SlidingWindowPredictor:
         wb = self.window_batch
         n_batches = -(-len(starts) // wb)
         if n_batches * wb > len(starts):
-            # duplicate windows are exact no-ops after count normalization
             starts = np.concatenate(
                 [starts, np.repeat(starts[-1:], n_batches * wb - len(starts), 0)])
         return padded, starts.reshape(n_batches, wb, 3)
@@ -136,14 +137,12 @@ class SlidingWindowPredictor:
             pads += [0, p - s]
         return F.pad(vol, [0, 0] + pads)
 
-    @torch.inference_mode()
-    def _run(self, vol: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
+    def _accumulate(self, vol: torch.Tensor, starts: np.ndarray, full: torch.Tensor,
+                    count) -> None:
+        """Adds the Gaussian-weighted logits of the windows at ``starts``
+        (batches of window_batch) into ``full`` and their weights into
+        ``count`` (None: not kept), in place."""
         td, th, tw = self.tile
-        argmax_out = self.output == "argmax"
-        full = torch.zeros((*vol.shape[:3], self.num_classes), dtype=torch.float32,
-                           device=vol.device)
-        count = None if argmax_out else torch.zeros((*vol.shape[:3], 1),
-                                                    dtype=torch.float32, device=vol.device)
         for batch in starts.tolist():
             tiles = torch.stack([vol[d:d + td, h:h + th, w:w + tw] for d, h, w in batch])
             logits = _tta_forward(self.apply_fn, tiles) if self.tta else self.apply_fn(tiles)
@@ -152,9 +151,20 @@ class SlidingWindowPredictor:
                 full[d:d + td, h:h + th, w:w + tw] += logits[i]
                 if count is not None:
                     count[d:d + td, h:h + th, w:w + tw] += self.gaussian
-        if argmax_out:
+
+    def _normalize(self, full: torch.Tensor, count) -> torch.Tensor:
+        if self.output == "argmax":
             return full.argmax(dim=-1).to(torch.uint8)
         return full / count
+
+    @torch.inference_mode()
+    def _run(self, vol: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
+        full = torch.zeros((*vol.shape[:3], self.num_classes), dtype=torch.float32,
+                           device=vol.device)
+        count = None if self.output == "argmax" else torch.zeros(
+            (*vol.shape[:3], 1), dtype=torch.float32, device=vol.device)
+        self._accumulate(vol, starts, full, count)
+        return self._normalize(full, count)
 
     def __call__(self, image) -> torch.Tensor:
         """image: (D, H, W) or (D, H, W, 1) host volume. Returns the blended

@@ -10,6 +10,12 @@ agreement mask fmask (B, D, H, W) of labels 1..num_classes-1: for every class
 l with at least one voxel at feature resolution,
 token[l] <- (1 - alpha) * token[l] + alpha * mean_{masked voxels} x_s. The
 mask is nearest-downsampled with the torch floor convention.
+
+Data parallelism (``group``): the per-class sums and voxel counts are summed
+over the ranks before the division, as the JAX package's ``psum`` over the
+data axis does, so every rank computes the same tokens (the reference let
+per-rank tokens drift). Averaging per-rank means instead would weight a rank
+with 3 voxels of a class like one with 30 000.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.distributed as dist
 
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest
 
@@ -44,32 +51,41 @@ def masked_class_sums(x: torch.Tensor, mask: torch.Tensor, num_fg: int):
     return sums, counts
 
 
-def masked_class_means(x: torch.Tensor, mask: torch.Tensor, num_fg: int):
-    """Per-class masked channel means (num_fg, C) in x.dtype, and the counts."""
+def masked_class_means(x: torch.Tensor, mask: torch.Tensor, num_fg: int, group=None):
+    """Per-class masked channel means (num_fg, C) in x.dtype, and the counts.
+    With a process ``group`` the sums (f32) and the counts (x.dtype, as JAX's
+    ``psum`` reduces them) are summed over its ranks first."""
     sums, counts = masked_class_sums(x, mask, num_fg)
+    if group is not None:
+        sums, counts = sums.detach(), counts.detach()  # EMA statistics: no gradient
+        dist.all_reduce(sums, group=group)
+        dist.all_reduce(counts, group=group)
     means = sums / torch.clamp(counts.float(), min=1.0)[:, None]
     return means.to(x.dtype), counts
 
 
 def ema_update_tokens(tok: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
-                      alpha: float) -> torch.Tensor:
+                      alpha: float, group=None) -> torch.Tensor:
     """One scale's EMA: tok (L, C) moves by alpha towards the masked class
     means of x (B, d, h, w, C) under mask (B, d, h, w) labels at x's
-    resolution; a class without a voxel keeps its token."""
-    means, counts = masked_class_means(x, mask, tok.shape[0])
+    resolution (over the ranks of ``group``); a class without a voxel keeps
+    its token."""
+    means, counts = masked_class_means(x, mask, tok.shape[0], group)
     upd = tok * (1.0 - alpha) + alpha * means.to(tok.dtype)
     return torch.where((counts > 0)[:, None], upd, tok)
 
 
 def renew_tokens(tokens: Dict[str, torch.Tensor], features: Sequence[torch.Tensor],
-                 fmask: torch.Tensor, alpha: float = 0.01) -> Dict[str, torch.Tensor]:
+                 fmask: torch.Tensor, alpha: float = 0.01,
+                 group=None) -> Dict[str, torch.Tensor]:
     """The token EMA (reference model.renew_token). features: the decoder
     feature maps at the three EAM scales, channels-last; fmask: (B, D, H, W)
-    labels where the prediction and the supervised label agree."""
+    labels where the prediction and the supervised label agree; ``group``:
+    the data-parallel process group whose ranks' statistics are summed."""
     new = dict(tokens)
     for name, x in zip(list(tokens), features):
         m = resize_nearest(fmask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
-        new[name] = ema_update_tokens(tokens[name], x, m, alpha)
+        new[name] = ema_update_tokens(tokens[name], x, m, alpha, group)
     return new
 
 

@@ -1,0 +1,315 @@
+"""Spawned data-parallel ranks on one host, for tests and ``chip_smoke.py``.
+
+:func:`run` starts ``world`` processes (``torch.multiprocessing``, spawn),
+makes each rank r of a ``torch.distributed`` group over a ``FileStore`` in a
+temporary directory (no TCP port, so parallel test workers never race for
+one), sets ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` as ``torchrun`` would, calls
+a function of this package with the given arguments, and returns each rank's
+return value in rank order. A rank that raises or dies ends the others and
+raises in the caller; a run past ``timeout`` seconds is ended and raises.
+
+The functions a rank runs live in the package, never in ``tests/``: a child
+that unpickled a test module's function would import it, and with it
+``tests/conftest.py``, which imports JAX. Arguments and results go through
+files written with ``torch.save`` in the run's temporary directory (CPU
+tensors; a rank moves what it needs to its device).
+
+The rank functions below: the data-parallel train step on each rank's
+batch (with the kernels' launch counts), the token EMA over a group, the
+Engine's reduction, the sharded predictor, the trainer CLI's ``main``, and
+a list of such calls in one spawn. :func:`states_unequal` lists the leaves
+in which two train states differ; :func:`reference_step` is
+the in-process reference of the data-parallel step: per-batch gradients
+averaged as ``(g0 + g1) / 2``, the updates and guards of the step, the token
+EMA from the summed class statistics.
+"""
+
+from __future__ import annotations
+
+import functools
+import operator
+import os
+import tempfile
+import time
+from collections import Counter
+
+import torch
+import torch.distributed as dist
+
+
+def run(fn, world: int, *args, backend: str = "gloo", timeout: float = 600.0) -> list:
+    """``fn(*args)`` on each of ``world`` spawned ranks; their return values.
+    Each rank takes the caller's count of torch CPU threads, so a CPU rank
+    sums as the caller does."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save((fn, args), os.path.join(tmp, "call.pt"))
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, backend, torch.get_num_threads()),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def _rank_main(rank: int, world: int, tmp: str, backend: str, threads: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    if backend == "gloo":
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank is on this host
+    torch.set_num_threads(threads)
+    fn, args = torch.load(os.path.join(tmp, "call.pt"), weights_only=False)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        torch.save(fn(*args), os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cpu(state):
+    from multimodal_pl_tpu_torch.train.state import map_state
+
+    return map_state(lambda t: t.detach().cpu(), state)
+
+
+def _launch_counts() -> dict:
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
+
+    return {"conv3x3": Counter(conv3x3.launches), "gn_relu": Counter(gn_relu.launches),
+            "gn_relu_backward": Counter(gn_relu.bwd_launches),
+            "fold": Counter(norm.fold_launches), "resize": Counter(resize.launches),
+            "resize_backward": Counter(resize.bwd_launches)}
+
+
+def _reset_launch_counts() -> None:
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
+
+    conv3x3.reset_launches()
+    gn_relu.reset_launches()
+    norm.fold_launches.clear()
+    resize.reset_launches()
+
+
+def states_unequal(a, b) -> list:
+    """The leaves of train states a and b that differ in any bit."""
+    bad = [f"{g}.{k}" for g in ("params", "rparams", "dparams", "tokens")
+           for k in getattr(a, g) if not torch.equal(getattr(a, g)[k], getattr(b, g)[k])]
+    bad += [f"momentum{i}.{k}" for i in range(2) for k in a.momentum[i]
+            if not torch.equal(a.momentum[i][k], b.momentum[i][k])]
+    return bad + [k for k in ("step", "epoch") if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def collective_times(trees, reps: int = 20) -> list:
+    """Device ms of the step's own average (``train.step.tree_apply`` with
+    ``pmean`` over the default group) of each name -> tensor dict list of
+    ``trees`` (CUDA tensors), the median of ``reps`` runs timed with CUDA
+    events: the ``pmean`` calls (all_reduce and divide, one per dtype) and
+    the rest of it (flatten and unflatten); and each buffer's MB."""
+    import numpy as np
+
+    from multimodal_pl_tpu_torch.train.step import pmean, tree_apply
+
+    out = []
+    for tensors in trees:
+        times = {"all_reduce": [], "flatten_unflatten": []}
+        for _ in range(reps + 2):
+            marks = []
+
+            def timed(flat):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                mean = pmean(flat, dist.group.WORLD)
+                ev[1].record()
+                marks.append(ev)
+                return mean
+
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            tree_apply(tensors, timed)
+            end.record()
+            torch.cuda.synchronize()
+            reduce_ms = sum(a.elapsed_time(b) for a, b in marks)
+            times["all_reduce"].append(reduce_ms)
+            times["flatten_unflatten"].append(start.elapsed_time(end) - reduce_ms)
+        leaves = [t for tree in tensors for t in tree.values()]
+        out.append({"mb": sum(t.numel() * t.element_size() for t in leaves) / 1e6,
+                    "leaves": len(leaves),
+                    **{k + "_ms": float(np.median(v[2:])) for k, v in times.items()}})
+    return out
+
+
+def grad_trees(state):
+    """Tensors shaped as the step's two averaged buffers: (params, rparams)
+    gradients; discriminator gradients with the two losses."""
+    zeros = lambda tree: {k: torch.zeros_like(v) for k, v in tree.items()}  # noqa: E731
+    loss = state.params[next(iter(state.params))].new_zeros(())
+    return [[zeros(state.params), zeros(state.rparams)],
+            [zeros(state.dparams), {"d": loss, "t": loss.clone()}]]
+
+
+def dp_step(cfg, state, batches, lr, wf, device="cpu", time_reps: int = 0):
+    """Rank r: one data-parallel step (``make_sharded_train_step`` over the
+    default group) from ``state`` on ``batches[r]``, on ``device``. Returns
+    (new state on the CPU, metrics as floats, the kernels' launch counts of
+    the step); with ``time_reps`` (CUDA only), also
+    :func:`collective_times` of the step's buffers."""
+    from multimodal_pl_tpu_torch.parallel.sharded_step import make_sharded_train_step
+    from multimodal_pl_tpu_torch.train.state import build_models
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    step = make_sharded_train_step(*(m.to(device) for m in build_models(cfg)), cfg,
+                                   dist.group.WORLD)
+    batch = {k: v.to(device) for k, v in batches[dist.get_rank()].items()}
+    state = state.to(device)
+    _reset_launch_counts()
+    new, metrics = step(state, batch, torch.as_tensor(lr, device=device),
+                        torch.as_tensor(wf, device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out = (_cpu(new), {k: float(v) for k, v in metrics.items()}, _launch_counts())
+    return out + (collective_times(grad_trees(state), time_reps),) if time_reps else out
+
+
+def dp_renew_tokens(tokens, features, fmasks, alpha):
+    """Rank r: ``renew_tokens`` over the default group on ``features[r]``
+    and ``fmasks[r]``."""
+    from multimodal_pl_tpu_torch.models.tokens import renew_tokens
+
+    r = dist.get_rank()
+    return renew_tokens(tokens, features[r], fmasks[r], alpha, group=dist.group.WORLD)
+
+
+def dp_engine(values):
+    """Rank r: the Engine's world size, local rank and
+    ``all_reduce_tensor`` of ``values[r]`` (mean and sum) over the default
+    group."""
+    from multimodal_pl_tpu_torch.engine import Engine
+
+    eng = Engine()
+    t = values[dist.get_rank()]
+    return (eng.world_size, eng.local_rank, eng.all_reduce_tensor(t),
+            eng.all_reduce_tensor(t, norm=False))
+
+
+def dp_predict(model_kwargs, weights, volumes, tile, runs=(("logits", 2),), device="cpu",
+               compute_dtype=torch.float32, bucket=(32, 64, 64)):
+    """Rank r: ``ShardedSlidingWindowPredictor`` over the default group with
+    a ``UNet3DFEAM(**model_kwargs)`` holding ``weights``, through
+    ``predict_iter`` over ``volumes``, once per (output mode, window batch)
+    of ``runs``. Returns ({run: rank 0's predictions on the CPU}, None on the
+    other ranks), whether every prediction of this rank equals rank 0's bit
+    for bit, and {run: this rank's kernel launch counts}."""
+    from multimodal_pl_tpu_torch.models import UNet3DFEAM
+    from multimodal_pl_tpu_torch.parallel.sharded_infer import ShardedSlidingWindowPredictor
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    model = UNet3DFEAM(**model_kwargs)
+    model.load_state_dict(weights)
+    model = model.to(device).eval()
+    outs, same, launches = {}, True, {}
+    for run_key in runs:
+        output, window_batch = run_key
+        pred = ShardedSlidingWindowPredictor(
+            lambda t: model(t, aux=False), tile, model_kwargs.get("num_classes", 14),
+            dist.group.WORLD, window_batch=window_batch, output=output, device=device,
+            compute_dtype=compute_dtype, bucket=bucket)
+        outs[run_key] = []
+        _reset_launch_counts()
+        for out in pred.predict_iter(volumes):
+            launches[run_key] = _launch_counts()
+            lead = out.clone()
+            dist.broadcast(lead, src=0)
+            same = same and torch.equal(lead, out)
+            outs[run_key].append(out.cpu())
+    return (outs if dist.get_rank() == 0 else None), same, launches
+
+
+def dp_train(argv):
+    """Rank r: ``multimodal_pl_tpu_torch.cli.train.main(argv)``; the final
+    train state on the CPU."""
+    from multimodal_pl_tpu_torch.cli import train
+
+    return _cpu(train.main(argv))
+
+
+def dp_calls(calls):
+    """Rank r: each ``(function, args)`` of ``calls`` in turn, in one group
+    (one spawn for several cases); their results."""
+    return [fn(*args) for fn, args in calls]
+
+
+def _sum(ts):
+    return functools.reduce(operator.add, ts)
+
+
+def reference_step(step, state, batches, lr, wf):
+    """The data-parallel step of ``len(batches)`` ranks in one process, from
+    the single-device step's parts: ``step.grads``/``step.disc_grads`` per
+    batch, averaged as ``(g0 + g1 + ...) / n``, then the step's updates and
+    guards; the token EMA from the class sums and counts summed over the
+    batches. Returns (new state, {'loss', 'disc_loss'}: the means)."""
+    from multimodal_pl_tpu_torch.models.tokens import agreement_mask, masked_class_sums
+    from multimodal_pl_tpu_torch.ops.resize import resize_nearest
+    from multimodal_pl_tpu_torch.train.state import (
+        all_finite,
+        fresh_adam_update,
+        select_tree,
+        torch_sgd_update,
+    )
+    from multimodal_pl_tpu_torch.train.step import poly_lr
+
+    cfg, n = step.cfg, len(batches)
+
+    def mean(trees):
+        return {k: _sum([t[k] for t in trees]) / n for k in trees[0]}
+
+    outs = [step.grads(state, b, wf) for b in batches]
+    gp = mean([o[1][0] for o in outs])
+    gr = mean([o[1][1] for o in outs])
+    g_ok = all_finite(gp) & all_finite(gr)
+    new_p, new_bp = torch_sgd_update(state.params, gp, state.momentum[0], lr, cfg.momentum,
+                                     cfg.weight_decay)
+    new_r, new_br = torch_sgd_update(state.rparams, gr, state.momentum[1], lr, cfg.momentum,
+                                     cfg.weight_decay)
+    disc = [step.disc_grads(state, o[2], b) for o, b in zip(outs, batches)]
+    dg = mean([d[1] for d in disc])
+    disc_lr = poly_lr(cfg.disc_lr, state.epoch, cfg.num_epochs)
+    dparams = select_tree(all_finite(dg), fresh_adam_update(state.dparams, dg, disc_lr),
+                          state.dparams)
+
+    tokens = dict(state.tokens)
+    fmasks = [agreement_mask(o[2]["cmask"], o[2]["logits"].argmax(dim=-1), b["sup_mask"])
+              for o, b in zip(outs, batches)]
+    for j, (name, tok) in enumerate(state.tokens.items()):
+        stats = []
+        for o, fm in zip(outs, fmasks):
+            x = o[2]["feats"][j].detach()
+            m = resize_nearest(fm[..., None].to(x.dtype), x.shape[1:4])[..., 0]
+            stats.append(masked_class_sums(x, m, tok.shape[0]))
+        sums, counts = _sum([s for s, _ in stats]), _sum([c for _, c in stats])
+        means = (sums / torch.clamp(counts.float(), min=1.0)[:, None]).to(x.dtype)
+        upd = tok * (1.0 - cfg.token_alpha) + cfg.token_alpha * means.to(tok.dtype)
+        tokens[name] = torch.where((counts > 0)[:, None], upd, tok)
+    tokens = select_tree(all_finite(tokens), tokens, state.tokens)
+
+    new = state.replace(
+        params=select_tree(g_ok, new_p, state.params),
+        rparams=select_tree(g_ok, new_r, state.rparams), dparams=dparams,
+        momentum=(select_tree(g_ok, new_bp, state.momentum[0]),
+                  select_tree(g_ok, new_br, state.momentum[1])),
+        tokens=tokens, step=state.step + 1)
+    return new, {"loss": _sum([o[0] for o in outs]) / n,
+                 "disc_loss": _sum([d[0] for d in disc]) / n}

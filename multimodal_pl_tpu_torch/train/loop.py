@@ -11,6 +11,16 @@ split and a checkpoint; a checkpoint at the end.
 Metrics stay device scalars between logs: ``float(...)`` runs only at the
 ``log_every`` cadence and once for the epoch summary, so the host never waits
 for the device inside a step.
+
+Data parallelism (``rank`` of ``world``, the JAX loop's ``n_dev``): every rank
+runs the loop with the same state and a data-parallel step
+(:mod:`multimodal_pl_tpu_torch.parallel.sharded_step`). The host dataset
+(``AMOSDataset.batches(rank=, world=)``) and the device pipeline (built with
+the same rank and world) each yield the rank's batches: batch i of the
+stream where ``i % world == r``, without an incomplete last group
+(``loop.py:171-180``). An epoch has ``len // (batch_size * world)`` steps. Rank 0
+alone validates, logs metrics and writes checkpoints; the ranks wait for it
+at a barrier after each.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from torch.func import functional_call
 from multimodal_pl_tpu_torch.infer.metrics import organ_scores
 from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
 from multimodal_pl_tpu_torch.losses.compose import feature_ramp
+from multimodal_pl_tpu_torch.parallel.mesh import barrier as wait_for_ranks
 from multimodal_pl_tpu_torch.train.checkpoint import save_checkpoint
 from multimodal_pl_tpu_torch.train.state import StepConfig, TrainState
 from multimodal_pl_tpu_torch.train.step import poly_lr
@@ -127,18 +138,30 @@ def to_device(batch, scfg: StepConfig, device) -> dict:
 
 
 def train_loop(state: TrainState, step_fn, model, train_ds, valid_ds, scfg: StepConfig,
-               cfg: LoopConfig, device, log_every: int = 10, device_pipe=None) -> TrainState:
+               cfg: LoopConfig, device, log_every: int = 10, device_pipe=None,
+               rank: int = 0, world: int = 1) -> TrainState:
     """Runs epochs start_epoch .. stop (or num_epochs) - 1 on ``device``,
     where ``state`` must already be. device_pipe: a DeviceDataPipeline of
     train_ds on ``device``; its batches are assembled on the device and go
-    to the step as they are, in place of train_ds's host batches."""
-    os.makedirs(cfg.snapshot_dir, exist_ok=True)
-    logger = MetricsLogger(cfg.snapshot_dir)
+    to the step as they are, in place of train_ds's host batches. rank,
+    world: this process's place in a data-parallel group (a default process
+    group must then exist)."""
+    lead = rank == 0
+    if lead:
+        os.makedirs(cfg.snapshot_dir, exist_ok=True)
+    logger = MetricsLogger(cfg.snapshot_dir) if lead else None
     check_refine_grad_capacity(train_ds, scfg)
     device = torch.device(device)
     if device_pipe is not None and device_pipe.device != device:
         raise ValueError(f"device_pipe holds its batches on {device_pipe.device}, the step "
                          f"runs on {device}")
+    if device_pipe is not None and (device_pipe.rank, device_pipe.world) != (rank, world):
+        raise ValueError(f"device_pipe assembles rank {device_pipe.rank} of "
+                         f"{device_pipe.world}, the loop runs rank {rank} of {world}")
+
+    def barrier():
+        if world > 1:
+            wait_for_ranks(device)
 
     stop = min(cfg.stop_epoch, cfg.num_epochs) if cfg.stop_epoch else cfg.num_epochs
     for epoch in range(cfg.start_epoch, stop):
@@ -152,30 +175,36 @@ def train_loop(state: TrainState, step_fn, model, train_ds, valid_ds, scfg: Step
             epoch_batches = device_pipe.batches(cfg.batch_size, epochs=1)
         else:
             epoch_batches = (to_device(b, scfg, device)
-                             for b in train_ds.batches(cfg.batch_size, epochs=1))
+                             for b in train_ds.batches(cfg.batch_size, epochs=1, rank=rank,
+                                                       world=world))
         for it, b in enumerate(epoch_batches):
             state, metrics = step_fn(state, b, lr, wf)
             loss_handles.append(metrics["loss"])
-            if log_every >= 1 and it % log_every == 0:  # <= 0: epoch summaries only
+            if lead and log_every >= 1 and it % log_every == 0:  # <= 0: epoch summaries only
                 logger.log(int(state.step), {k: float(v) for k, v in metrics.items()})
         epoch_losses = [float(h) for h in loss_handles]
         dt = time.time() - t0
-        pps = max(len(epoch_losses), 1) * cfg.batch_size / dt
+        pps = max(len(epoch_losses), 1) * cfg.batch_size * world / dt
         mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
-        logger.log(epoch, {"epoch_loss": mean_loss, "lr": float(lr),
-                           "patches_per_sec": pps}, prefix="epoch/")
-        print(f"Epoch_sum {epoch}: lr = {float(lr):.4} loss = {mean_loss:.4} "
-              f"({pps:.2f} patches/s)")
+        if lead:
+            logger.log(epoch, {"epoch_loss": mean_loss, "lr": float(lr),
+                               "patches_per_sec": pps}, prefix="epoch/")
+            print(f"Epoch_sum {epoch}: lr = {float(lr):.4} loss = {mean_loss:.4} "
+                  f"({pps:.2f} patches/s)")
 
         if valid_ds is not None and epoch >= 5 and (epoch + 1) % cfg.val_every == 0:
-            r1, ct, mri, n_ct, n_mri = validate(state, model, valid_ds, cfg, scfg, device,
-                                                logger, epoch)
-            print(f"validate: sup_dice_sum={r1:.4f} ct_mean={ct.mean():.4f} "
-                  f"({n_ct} cases) mri_mean={mri.mean():.4f} ({n_mri} cases)")
-            print("  CT  organ dice: " + " ".join(f"{v:.3f}" for v in ct))
-            print("  MRI organ dice: " + " ".join(f"{v:.3f}" for v in mri))
-            save_checkpoint(cfg.snapshot_dir, state, int(state.step))
+            if lead:
+                r1, ct, mri, n_ct, n_mri = validate(state, model, valid_ds, cfg, scfg, device,
+                                                    logger, epoch)
+                print(f"validate: sup_dice_sum={r1:.4f} ct_mean={ct.mean():.4f} "
+                      f"({n_ct} cases) mri_mean={mri.mean():.4f} ({n_mri} cases)")
+                print("  CT  organ dice: " + " ".join(f"{v:.3f}" for v in ct))
+                print("  MRI organ dice: " + " ".join(f"{v:.3f}" for v in mri))
+                save_checkpoint(cfg.snapshot_dir, state, int(state.step))
+            barrier()
 
-    save_checkpoint(cfg.snapshot_dir, state, int(state.step))
-    logger.close()
+    if lead:
+        save_checkpoint(cfg.snapshot_dir, state, int(state.step))
+        logger.close()
+    barrier()
     return state

@@ -21,11 +21,23 @@ trilinear upsamples' gradient is the gather-form ``resize3d`` kernel (the
 library's gradient adds with atomics), and the hand-written kernels sum in
 fixed orders. Two runs from one state and batch give the same bits
 (``chip_smoke.py`` phase 9; ``tools/determinism.py``).
+
+Data parallelism (``group``, the JAX package's ``axis_name``): every rank runs
+the whole step on its own batch. The gradients of (params, rparams) are
+averaged over the ranks before the non-finite guard, so every rank's guard
+sees the same gradient and decides alike; the discriminator's gradients, its
+loss and the total loss are averaged after its backward; the token EMA sums
+its statistics over the ranks. Each average is one ``all_reduce`` of a flat
+buffer per dtype, divided by the world size (``pmean``). With ``group=None``
+no collective runs and the step is the single-device one.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from multimodal_pl_tpu_torch.infer.metrics import organ_scores, refiner_organ_scores
@@ -56,6 +68,42 @@ def _weighted_ce_const(logits: torch.Tensor, weights: torch.Tensor, label: int) 
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+def flat_apply(tensors, fn):
+    """``fn`` applied to one contiguous buffer per dtype of ``tensors``
+    (concatenated in order), its result split back into tensors of the
+    input shapes: one collective per dtype instead of one per tensor."""
+    out = list(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = fn(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        for i, piece in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = piece.view(tensors[i].shape)
+    return out
+
+
+def pmean(flat: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``flat`` over the ranks of ``group``: one ``all_reduce``
+    (sum), divided by the world size."""
+    dist.all_reduce(flat, group=group)
+    return flat / dist.get_world_size(group)
+
+
+def tree_apply(trees, fn):
+    """``flat_apply`` over the leaves of name -> tensor dicts, all in one
+    buffer per dtype."""
+    keys = [list(t) for t in trees]
+    out = iter(flat_apply([t[k] for t, ks in zip(trees, keys) for k in ks], fn))
+    return [{k: next(out) for k in ks} for ks in keys]
+
+
+def tree_mean(trees, group):
+    """Each leaf of name -> tensor dicts averaged over the ranks of ``group``
+    (``pmean``), one ``all_reduce`` per dtype."""
+    return tree_apply(trees, functools.partial(pmean, group=group))
+
+
 def _organs_first(probs: torch.Tensor) -> torch.Tensor:
     """(D, H, W, C) class probabilities -> (C-1, D, H, W) organ planes."""
     return probs[..., 1:].movedim(-1, 0)
@@ -67,10 +115,16 @@ class TrainStep:
     batch (device tensors): image (B, D, H, W, 1); label (B, D, H, W) ints;
     catlas (C-1, D, H, W); sup_mask (C,) 0/1 with [0] = 0; label_t (C-1,)
     modality flags. lr: segmenter/refiner learning rate; weight_feature: the
-    pseudo-label ramp weight. Metrics are device scalars."""
+    pseudo-label ramp weight. Metrics are device scalars.
 
-    def __init__(self, model, refiner, disc, cfg: StepConfig):
+    group: a data-parallel process group. Every rank passes its own batch
+    and the same state, and gets the same new state; the loss and the
+    discriminator's loss are the ranks' means, the other metrics this
+    rank's."""
+
+    def __init__(self, model, refiner, disc, cfg: StepConfig, group=None):
         self.model, self.refiner, self.disc, self.cfg = model, refiner, disc, cfg
+        self.group = group
 
     def _disc(self, dparams, probs, catlas, attns):
         """Discriminator logits over all organs of sample 0."""
@@ -168,6 +222,8 @@ class TrainStep:
         cfg = self.cfg
         nfg = cfg.num_classes - 1
         total, (gp, gr), aux = self.grads(state, batch, weight_feature)
+        if self.group is not None:
+            gp, gr = tree_mean([gp, gr], self.group)
 
         # non-finite-gradient guard: a bad bf16 step is skipped, not applied
         g_ok = all_finite(gp) & all_finite(gr)
@@ -182,13 +238,17 @@ class TrainStep:
 
         disc_lr = poly_lr(cfg.disc_lr, state.epoch, cfg.num_epochs)  # train:325
         d_loss, dgrads = self.disc_grads(state, aux, batch)
+        if self.group is not None:
+            dgrads, losses = tree_mean([dgrads, {"d": d_loss, "t": total}], self.group)
+            d_loss, total = losses["d"], losses["t"]
         d_ok = all_finite(dgrads)
         dparams = select_tree(d_ok, fresh_adam_update(state.dparams, dgrads, disc_lr),
                               state.dparams)
 
         # class-token EMA (train:382-391), guarded like the updates
         fmask = agreement_mask(aux["cmask"], aux["logits"].argmax(dim=-1), batch["sup_mask"])
-        new_tokens = renew_tokens(state.tokens, aux["feats"], fmask, cfg.token_alpha)
+        new_tokens = renew_tokens(state.tokens, aux["feats"], fmask, cfg.token_alpha,
+                                  self.group)
         tokens = select_tree(all_finite(new_tokens), new_tokens, state.tokens)
 
         new_state = state.replace(params=params, rparams=rparams, dparams=dparams,

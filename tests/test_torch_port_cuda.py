@@ -506,3 +506,93 @@ def test_remat_step_on_the_card_equals_step(cuda_device):
         assert _rel(gg[i][k], wg[i][k]) <= 1e-3, k
     assert torch.equal(again, want)
     assert all(torch.equal(rerun[i][k], wg[i][k]) for i in (0, 1) for k in wg[i])
+
+
+def _dp_batches(device="cpu"):
+    """Two seeded B = 1 shards at 32^3 with different supervised organs
+    (5: in the labeled modality, so the refiner trains; 3: not)."""
+    out = []
+    for seed, organ in ((1, 5), (2, 3)):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        sup = torch.zeros(14)
+        sup[organ] = 1
+        out.append({k: v.to(device) for k, v in {
+            "image": torch.randn((1, 32, 32, 32, 1), generator=g),
+            "label": torch.randint(0, 14, (1, 32, 32, 32), generator=g).to(torch.uint8),
+            "catlas": torch.rand((13, 32, 32, 32), generator=g), "sup_mask": sup,
+            "label_t": torch.tensor([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1.])}.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_step_and_predictor_equal_the_single_ones(cuda_device):
+    """A one-rank NCCL group (--mesh data:1 without torchrun): the
+    data-parallel step (kernels, bf16) gives the single step's state and
+    metrics bit for bit, and the sharded predictor the single predictor's
+    label map and blended logits."""
+    from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from multimodal_pl_tpu_torch.parallel import init_data_parallel, make_sharded_train_step
+    from multimodal_pl_tpu_torch.parallel.sharded_infer import ShardedSlidingWindowPredictor
+    from multimodal_pl_tpu_torch.tools import spawn
+    from multimodal_pl_tpu_torch.train.state import (
+        build_models, create_train_state, tiny_step_config)
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    cfg = tiny_step_config(compute_dtype=torch.bfloat16)
+    batch = _dp_batches(cuda_device)[0]
+    lr, wf = torch.tensor(1.0, device=cuda_device), torch.tensor(0.05, device=cuda_device)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(cuda_device)
+    want, wm = make_train_step(*(m.to(cuda_device) for m in build_models(cfg)), cfg)(
+        state, batch, lr, wf)
+    model = UNet3DFEAM(layers=(1, 1, 1, 1, 1), deep_up=True,
+                       generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    vol = np.random.default_rng(0).standard_normal((40, 72, 56)).astype(np.float32)
+    kw = dict(window_batch=3, compute_dtype=torch.bfloat16, device=cuda_device,
+              bucket=(8, 8, 8))
+    single = {o: SlidingWindowPredictor(lambda t: model(t, aux=False), (16, 32, 32), 14,
+                                        output=o, **kw)(vol) for o in ("argmax", "logits")}
+    with init_data_parallel("data:1", "cuda") as dp:
+        assert torch.distributed.get_backend() == "nccl"
+        step = make_sharded_train_step(*(m.to(cuda_device) for m in build_models(cfg)), cfg,
+                                       dp.group)
+        got, gm = step(state, batch, lr, wf)
+        sharded = {o: ShardedSlidingWindowPredictor(lambda t: model(t, aux=False), (16, 32, 32),
+                                                    14, dp.group, output=o, **kw)(vol)
+                   for o in ("argmax", "logits")}
+    assert spawn.states_unequal(got, want) == []
+    assert all(torch.equal(gm[k], wm[k]) for k in wm)
+    assert all(torch.equal(sharded[o], single[o]) for o in single)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card(cuda_device):
+    """Two spawned ranks on cuda:0 over gloo (NCCL takes one rank per card),
+    one step each (kernels, bf16) on its own shard from one state: the same
+    bits on both ranks, equal to the in-process (g0 + g1) / 2 reference;
+    each rank's kernel launches are those of a single step."""
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, resize
+    from multimodal_pl_tpu_torch.tools import spawn
+    from multimodal_pl_tpu_torch.train.state import (
+        build_models, create_train_state, tiny_step_config)
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    cfg = tiny_step_config(compute_dtype=torch.bfloat16)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg)
+    ranks = spawn.run(spawn.dp_step, 2, cfg, state, _dp_batches(), 1.0, 0.05, "cuda:0",
+                      timeout=300)
+    step = make_train_step(*(m.to(cuda_device) for m in build_models(cfg)), cfg)
+    batches = _dp_batches(cuda_device)
+    lr, wf = torch.tensor(1.0, device=cuda_device), torch.tensor(0.05, device=cuda_device)
+    ref, rm = spawn.reference_step(step, state.to(cuda_device), batches, lr, wf)
+    conv3x3.reset_launches()
+    gn_relu.reset_launches()
+    resize.reset_launches()
+    step(state.to(cuda_device), batches[0], lr, wf)
+    single = {"conv3x3": conv3x3.launches, "gn_relu": gn_relu.launches,
+              "gn_relu_backward": gn_relu.bwd_launches, "resize": resize.launches,
+              "resize_backward": resize.bwd_launches}
+    ref = spawn._cpu(ref)
+    for got, m, launches in ranks:
+        assert spawn.states_unequal(got, ref) == []
+        assert m["loss"] == float(rm["loss"])
+        assert all(launches[k] == single[k] and sum(single[k].values()) > 0 for k in single)

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 
 from multimodal_pl_tpu.data import nifti as jnifti
+from multimodal_pl_tpu.data.augment import intensity_augment as jintensity_augment
 from multimodal_pl_tpu.data.dataset import AMOSDataset as JAMOSDataset
 from multimodal_pl_tpu_torch.data import nifti
+from multimodal_pl_tpu_torch.data.augment import apply_intensity, draw_intensity
 from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
 from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
 
@@ -57,6 +59,21 @@ def test_augmented_batches_match_jax_dataset(data):
     sup = list(zip(ref.supervision_rows(), port.supervision_rows(), strict=True))
     for (ma, ta), (mb, tb) in sup:
         assert np.array_equal(ma, mb) and np.array_equal(ta, tb)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_intensity_draws_and_application_match_jax(channels):
+    """draw_intensity then apply_intensity is JAX's intensity_augment, bit
+    for bit, and leaves the generator where it does: 200 samples, so every
+    transform and every per-channel branch fires."""
+    x = np.random.default_rng(0).standard_normal((200, 3, 4, 5, channels)).astype(np.float32)
+    rng, jrng = np.random.default_rng(9), np.random.default_rng(9)
+    draws = draw_intensity(rng, len(x), x.shape[1:])
+    for key in ("noise", "blur", "scale", "shift", "contrast"):
+        assert any(key in d for d in draws), key
+    got, want = apply_intensity(x, draws), jintensity_augment(x, jrng)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert rng.random() == jrng.random()
 
 
 @pytest.mark.parametrize("dtype,suffix", [(np.uint8, ".nii.gz"), (np.float32, ".nii"),

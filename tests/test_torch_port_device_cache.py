@@ -257,8 +257,8 @@ def test_pipeline_rejects_what_it_cannot_hold(ds, monkeypatch):
     scaled.scale = True
     with pytest.raises(ValueError, match="host-path only"):
         dc.DeviceDataPipeline(scaled, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dc.DeviceDataPipeline(ds, device="cpu", mesh="data:2")
+    with pytest.raises(ValueError, match="rank 2 is not in a world of 2"):
+        dc.DeviceDataPipeline(ds, device="cpu", rank=2, world=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dc.DeviceDataPipeline(ds)  # the default device is the GPU

@@ -1,6 +1,7 @@
-"""The port's boundary and entry point: importing every port module, and
-parsing both CLIs' arguments (mpl-evaluate's --pallas_k2, --fused_gn, --bd
-and --mesh among them), loads no JAX and no module of the JAX package;
+"""The port's boundary and entry point: importing every port module (the
+data-parallel ones among them), and parsing both CLIs' arguments
+(mpl-evaluate's --pallas_k2, --fused_gn, --bd and --mesh among them), loads
+no JAX and no module of the JAX package;
 mpl-evaluate-torch accepts every flag of mpl-evaluate with mpl-train-torch's
 semantics, and runs end to end on a synthetic AMOS-layout set on the CPU.
 """
@@ -58,7 +59,11 @@ def test_port_imports_no_jax():
     got = json.loads(proc.stdout)
     assert len(got["names"]) >= 15, got  # every module of the package was imported
     assert {"multimodal_pl_tpu_torch.data.device_cache",
-            "multimodal_pl_tpu_torch.utils.flops"} <= set(got["names"]), got
+            "multimodal_pl_tpu_torch.utils.flops", "multimodal_pl_tpu_torch.engine",
+            "multimodal_pl_tpu_torch.parallel.mesh",
+            "multimodal_pl_tpu_torch.parallel.sharded_step",
+            "multimodal_pl_tpu_torch.parallel.sharded_infer",
+            "multimodal_pl_tpu_torch.tools.spawn"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
 
@@ -92,8 +97,15 @@ def test_evaluate_kernel_flags_choose_the_route(flags, conv_impl, gn_impl):
 
 
 def test_evaluate_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """--mesh data:2 without a group of 2 ranks raises naming the world size;
+    a space axis (not ported) raises naming ROADMAP; --mesh with --tta raises
+    (the JAX CLI drops --tta under --mesh)."""
+    with pytest.raises(ValueError, match="world size is 1"):
         evaluate.main(["--mesh", "data:2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        evaluate.main(["--mesh", "data:2,space:2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--tta"):
+        evaluate.main(["--mesh", "data:1", "--tta", "true", "--device", "cpu"])
 
 
 def test_str2bool():

@@ -60,6 +60,44 @@ def test_batched_matches_naive_loop(rng):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+def _window_apply(tiles):
+    """A toy network whose output for a voxel depends on the window: each
+    tile plus 100 times its own mean (about 1 on unit noise), so overlapping
+    windows disagree and their blend weights show."""
+    return torch.cat([tiles + 100 * tiles.mean(dim=(1, 2, 3, 4), keepdim=True) + c
+                      for c in range(3)], dim=-1)
+
+
+def _jax_window_apply(tiles):
+    """_window_apply written in JAX."""
+    return jnp.concatenate([tiles + 100 * tiles.mean(axis=(1, 2, 3, 4), keepdims=True) + c
+                            for c in range(3)], axis=-1)
+
+
+@pytest.mark.parametrize("window_batch", [3, 5])
+def test_duplicate_windows_are_added_as_in_jax(rng, window_batch):
+    """8 windows in batches of 3 or 5 leave 1 or 2 copies of the last window
+    to fill the last batch. Both predictors add them: the port's blend is
+    the JAX predictor's, and both differ from the per-tile loop's, where each
+    window counts once, by as much as the copies weigh the last window where
+    it overlaps another."""
+    vol = rng.standard_normal((24, 40, 40)).astype(np.float32)
+    tile = (16, 24, 24)
+    pred = SlidingWindowPredictor(_window_apply, tile, 3, window_batch=window_batch,
+                                  bucket=(8, 8, 8), device="cpu")
+    assert pred._plan(vol.shape)[1].shape == (-(-8 // window_batch), window_batch, 3)
+    got = pred(vol).numpy()
+    want = np.asarray(jsliding.SlidingWindowPredictor(
+        _jax_window_apply, tile, 3, window_batch=window_batch, bucket=(8, 8, 8))(vol))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    once = predict_sliding_naive(_window_apply, vol, tile, 3)
+    assert np.abs(got - once).max() > 0.1
+    d, h, w = make_window_grid(vol.shape, tile)[-1]
+    outside = np.ones(vol.shape, bool)
+    outside[d:d + tile[0], h:h + tile[1], w:w + tile[2]] = False
+    np.testing.assert_allclose(got[outside], once[outside], rtol=1e-5, atol=1e-5)
+
+
 def test_bucket_padding_is_exact(rng):
     vol = rng.standard_normal((20, 30, 30)).astype(np.float32)
     tile = (16, 24, 24)

@@ -3,8 +3,8 @@ geometry on synthetic AMOS-layout cases write the JSONL log and a
 checkpoint, and a second run resumes from it, on the host batch path and on
 the device batch path (``--device_data``) with ``--remat``; mpl-evaluate-torch
 loads the checkpoint a full-width run writes, named or as the latest. The
-device flags of both CLIs raise where CUDA is missing, and the unported
-option (``--mesh``) raises in both."""
+device flags of both CLIs raise where CUDA is missing, and ``--mesh`` raises
+where the world does not match it or names the unported space axis."""
 
 import json
 import os
@@ -142,10 +142,16 @@ def test_train_cli_device_data_auto_takes_the_pipeline(data, tmp_path, capsys, m
     assert int(state.step) == 2
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data:2"]])
+@pytest.mark.parametrize("flag", [["--mesh", "data:2"], ["--mesh", "data:2,space:2"]])
 def test_train_cli_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(flag + ["--device", "cpu"])
+    """--mesh data:2 without a group of 2 ranks raises naming the world size
+    (data parallelism runs under torchrun); the space axis is not ported."""
+    if "space" in flag[1]:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train.main(flag + ["--device", "cpu"])
+    else:
+        with pytest.raises(ValueError, match="world size is 1"):
+            train.main(flag + ["--device", "cpu"])
 
 
 def test_evaluate_cli_loads_what_train_cli_writes(data, tmp_path, monkeypatch, capsys):
