@@ -112,7 +112,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    predictor over phase 4's volume against the one-rank predictor: blended
    logits within 1e-5, argmax agreement >= 0.9999, rank 0's kernel calls
    those of 2 tile batches and rank 1's of one (its batch of pad duplicates
-   is skipped).
+   is skipped);
+13. the ablation U-Nets at full width (base 32, 14 classes; seeded weights,
+   with phase 3's FEAM weights on every parameter they share with it):
+   UNet3DBaseline, UNet3DDeepSup, UNet3DEAM (num_eams 3 and 2) and
+   UNet3DDynHead on phase 3's bf16 tile batch: the logits kernel vs plain
+   within rel L2 3e-2, and every output (logits, deep maps, the EAM
+   cascade's tokens and attention maps, DynHead's 2-channel logits) of the
+   kernel route at most 1.05 times as far from an f32 forward as the plain
+   bf16 route's (kernel vs plain reported); the exact kernel calls per
+   tile batch (18 fused + 4 prologue-off conv3x3_gn, 18 folds, 4 resize3d;
+   gn_relu 17 for the trunk, 20 for UNet3DDeepSup(aux=True), 18 for
+   UNet3DDynHead), each shape checked in phase 2 or here (the deep heads'
+   gn_relu shapes); the Baseline's, DeepSup(aux=False)'s and the EAM
+   ablations' (aux=False) logits the bits of the FEAM's aux=False logits;
+   UNet3DBaseline and UNet3DDynHead (one task id) serve phase 4's volume
+   through SlidingWindowPredictor(output='argmax'): label maps kernel vs
+   plain agree >= 0.95, calls per volume 3 tile batches', s/vol (median
+   of 3, beside the FEAM's timed alike); a
+   utils/profiling.trace of one UNet3DBaseline forward holds device kernel
+   events of the port's kernels; the loss zoo: every aux_variants function
+   on FEAM-shaped f32 outputs of one tile on the card, and on a 32 x 96 x 96
+   crop of it, every legacy function on 12-, 6- and 5-class MOTS logits and
+   on DynHead's 2-channel logits, card vs CPU: value and gradient with
+   respect to the logits within rel 1e-4.
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
@@ -1635,6 +1658,409 @@ def phase_profile():
     return out
 
 
+# phase 13: the ablation U-Nets at full width
+ABLATION_TASKS = (0, 3, 5, 6)   # DynHead task ids of the tile batch's four tiles
+ABLATION_VOL_TASK = 3           # DynHead task id over the volume
+LOSS_CROP = (32, 96, 96)        # the loss zoo's card-vs-CPU comparison crop of the tile
+MOTS_SHAPE = (16, 48, 48)       # the legacy losses' 12-class MOTS volumes (7 tasks)
+LOSS_REL = 1e-4                 # loss zoo, card vs CPU in f32: value and gradient
+# Ablation outputs against an f32 forward (the plain route on f32 input):
+# both bf16 routes sit 0.070-0.073 (rel L2) from it at the 1/8-scale deep map
+# and attention maps, so the two differ there by 0.030-0.031 (H100 runs) and
+# phase 3's 3e-2 holds only the logits; every output of the kernel route may
+# be at most F32_RATIO times as far from the f32 forward as the plain bf16
+# route's (measured 0.83-1.011). A planted fault, the GroupNorm -> ReLU
+# before DeepSup's 1/8-scale head scaled by 1.03 on the kernel route, reads
+# 1.095 there (scaled by 1.01: 1.014, passes).
+F32_RATIO = 1.05
+TIMED_VOLS = 3                  # one-shot predictor runs timed per model (median)
+
+
+def ablation_models():
+    """name -> (class, constructor keywords, number of classes of the
+    logits) of each ablation phase 13 runs."""
+    from multimodal_pl_tpu_torch import models
+
+    return {"baseline": (models.UNet3DBaseline, {}, NC), "deepsup": (models.UNet3DDeepSup, {}, NC),
+            "eam3": (models.UNet3DEAM, {"num_eams": 3}, NC),
+            "eam2": (models.UNet3DEAM, {"num_eams": 2}, NC),
+            "dynhead": (models.UNet3DDynHead, {}, 2)}
+
+
+def ablation_gn_keys(name: str, aux: bool = True):
+    """gn_relu calls of one forward of a 4-tile batch of ablation ``name``,
+    from the architecture: the trunk's 17 (``serving_gn_keys``); with aux,
+    UNet3DDeepSup's three deep heads (at the x8, x4, x2 decoder outputs, of
+    4, 2, 1 x base channels); UNet3DDynHead's gap_gn on the fusion output
+    (8 x base channels at 1/16 scale)."""
+    keys = serving_gn_keys()
+    b = 32
+    if name == "deepsup" and aux:
+        keys.update((c, 16, WINDOW_BATCH, *_scale(TILE, k)) for c, k in ((4 * b, 8), (2 * b, 4),
+                                                                          (b, 2)))
+    if name == "dynhead":
+        keys[(8 * b, 16, WINDOW_BATCH, *_scale(TILE, 16))] += 1
+    return keys
+
+
+def _flat(out):
+    """Every tensor of a model's output, the logits first."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _value_grad(fn, logits, rest):
+    """fn(logits, *rest) and its gradient with respect to the logits; a
+    tuple of values is differentiated through its sum weighted 1, 2, ..."""
+    x = logits.detach().clone().requires_grad_(True)
+    out = fn(x, *rest)
+    vals = list(out) if isinstance(out, tuple) else [out]
+    (grad,) = torch.autograd.grad(sum((k + 1) * v for k, v in enumerate(vals)), x)
+    return torch.stack([torch.as_tensor(v).detach().float() for v in vals]), grad
+
+
+def loss_zoo_cases(dyn_logits):
+    """(name, fn, logits, rest) of every aux_variants function on FEAM-shaped
+    f32 outputs (14 classes; deep maps at 1/8, 1/4, 1/2; attention maps at
+    those scales, or full size for segmentation_loss2, which needs the
+    refiner's resolution; refiner or teacher logits (13, ..., 2) given and
+    None), ``at`` the tile or its crop, and of every legacy function on
+    12-, 6- and 5-class MOTS logits (a sample for every task of each table)
+    and on UNet3DDynHead's 2-channel logits ``dyn_logits`` (f32, CPU) with a
+    2-channel target whose sample 1 is -1 (ignored). All CPU tensors from a
+    seeded generator. Returns (cases at the tile, cases at the crop)."""
+    from multimodal_pl_tpu_torch.losses import aux_variants, legacy
+
+    g = torch.Generator().manual_seed(14)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    def randint(hi, shape):
+        return torch.randint(0, hi, shape, generator=g)
+
+    def aux_cases(sp):
+        logits, labels = randn(1, *sp, NC, scale=2.0), randint(NC, (1, *sp))
+        sup = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0, 1, 1, 0, 0, 1, 1], dtype=torch.float32)
+        deep = [randn(1, *_scale(sp, k), NC) for k in (8, 4, 2)]
+        small = [randn(1, *_scale(sp, k), NC - 1) for k in (8, 4, 2)]
+        full = [randn(1, *sp, NC - 1) for _ in range(3)]
+        ref, label_t = randn(NC - 1, *sp, 2, scale=3.0), (randint(2, (NC - 1,))).float()
+        out = []
+        for name in ("segmentation_loss_mse", "segmentation_loss2", "segmentation_loss_multiref",
+                     "segmentation_loss_semi"):
+            kw = "teacher_logits" if name.endswith("semi") else "refiner_logits"
+            attns = full if name == "segmentation_loss2" else small
+            for given in (True, False):
+                extra = {kw: ref, "label_t": label_t} if given else {}
+
+                def fn(x, labels, sup, deep, attns, extra, name=name):
+                    return getattr(aux_variants, name)(x, labels, sup, deep, attns, **extra)
+
+                out.append((f"{name}({kw if given else 'None'})", fn, logits,
+                            (labels, sup, deep, attns, extra)))
+        return out
+
+    def mots_labels(tasks):
+        rows = []
+        for tid in tasks:
+            classes = torch.tensor((0,) + tuple(legacy.MOTS_TASK_FG[tid]))
+            rows.append(classes[randint(len(classes), MOTS_SHAPE)])
+        return torch.stack(rows)
+
+    tasks = tuple(legacy.MOTS_TASK_FG)
+    mots, mlab = randn(len(tasks), *MOTS_SHAPE, 12, scale=2.0), mots_labels(tasks)
+    weights = legacy.tal_update_weights(torch.zeros(12), torch.zeros(12), 1200.0, 3)[2]
+    legacy_cases = [
+        ("tal_loss", legacy.tal_loss, mots, (mlab, tasks)),
+        ("marg_exc_loss", legacy.marg_exc_loss, mots, (mlab, tasks)),
+        ("tal_loss_weighted", legacy.tal_loss_weighted, mots, (mlab, tasks, weights)),
+        ("bce_onehot(11)", lambda x, y: legacy.bce_onehot(x[..., :11], y, 11), mots,
+         (randint(12, mlab.shape),)),
+        ("dice_softmax_fg(12)", lambda x, y: legacy.dice_softmax_fg(x, y, 12), mots,
+         (randint(12, mlab.shape),)),
+        ("dice_sigmoid_shifted(11)", lambda x, y: legacy.dice_sigmoid_shifted(x[..., :11], y, 11),
+         mots, (randint(12, mlab.shape),))]
+    for name, nc, table in (("tal6_loss", 6, legacy.MOTS_TASK_FG6),
+                            ("tal5_loss", 5, legacy.MOTS_TASK_FG5),
+                            ("bce_no_bg5", 5, legacy.MOTS_TASK_FG5)):
+        t = tuple(table)
+        legacy_cases.append((name, getattr(legacy, name), randn(len(t), *MOTS_SHAPE, nc),
+                             (randint(nc, (len(t), *MOTS_SHAPE)), t)))
+    dyn_lab = randint(2, dyn_logits.shape[:-1])
+    target = torch.stack([1 - dyn_lab, dyn_lab], -1).float()
+    target[1] = -1
+    legacy_cases += [
+        ("binary_dice(DynHead)", lambda x, t: legacy.binary_dice(torch.sigmoid(x[..., 1]),
+                                                                 t[..., 1]),
+         dyn_logits, (target,)),
+        ("dice_loss_4mots(DynHead)", legacy.dice_loss_4mots, dyn_logits, (target,)),
+        ("ce_loss_4mots(DynHead)", legacy.ce_loss_4mots, dyn_logits, (target,)),
+        ("bce_onehot(DynHead)", lambda x, y: legacy.bce_onehot(x, y, 2, offset=0), dyn_logits,
+         (dyn_lab,)),
+        ("dice_softmax_fg(DynHead)", lambda x, y: legacy.dice_softmax_fg(x, y, 2), dyn_logits,
+         (dyn_lab,)),
+        ("dice_sigmoid_shifted(DynHead)", lambda x, y: legacy.dice_sigmoid_shifted(x, y, 2),
+         dyn_logits, (dyn_lab,))]
+    return aux_cases(TILE), aux_cases(LOSS_CROP) + legacy_cases
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and any(isinstance(t, (torch.Tensor, list, dict))
+                                               for t in tree):
+        return type(tree)(_to(t, dev) for t in tree)
+    return tree
+
+
+def phase_loss_zoo(dev, dyn_logits):
+    """Phase 13, the loss zoo on the card: every aux_variants function at
+    the full tile in f32 (finite value and gradient), then every case of
+    ``loss_zoo_cases`` on the card and on the CPU (aux_variants on the
+    LOSS_CROP crop of the tile, to keep the CPU side short): value and
+    gradient with respect to the logits within LOSS_REL relative."""
+    full, crop = loss_zoo_cases(dyn_logits)
+    out = {}
+    for name, fn, logits, rest in full:
+        val, grad = _value_grad(fn, logits.to(dev), _to(rest, dev))
+        check(bool(torch.isfinite(val).all()) and bool(torch.isfinite(grad).all()),
+              f"loss zoo {name} at the full tile: not finite")
+        out[f"{name} @ tile"] = {"value": val.tolist()}
+    for name, fn, logits, rest in crop:
+        val, grad = _value_grad(fn, logits.to(dev), _to(rest, dev))
+        cval, cgrad = _value_grad(fn, logits, rest)
+        rel_v = ((val.cpu() - cval).abs() / cval.abs().clamp(min=1e-30)).max().item()
+        rel_g = _rel(grad.cpu(), cgrad)
+        out[name] = {"value": cval.tolist(), "value_rel": rel_v, "grad_rel": rel_g}
+        check(rel_v <= LOSS_REL and rel_g <= LOSS_REL and float(cgrad.abs().max()) > 0,
+              f"loss zoo {name}: card vs CPU value rel {rel_v}, gradient rel {rel_g}")
+    print(f"[13] loss zoo: {len(full)} aux_variants cases at the {TILE} tile on the card; "
+          f"{len(crop)} cases card vs CPU (aux_variants at {LOSS_CROP}): worst value rel "
+          f"{max(v['value_rel'] for k, v in out.items() if 'value_rel' in v):.3g}, gradient "
+          f"rel {max(v['grad_rel'] for k, v in out.items() if 'grad_rel' in v):.3g}", flush=True)
+    return out
+
+
+def phase_ablations(dev, results, feam, vol, tables):
+    """Phase 13: the ablation U-Nets at full width (base 32, 14 classes) on
+    the card, each with seeded weights and the phase-3 FEAM's weights on
+    every parameter it shares with it by name and shape (the trunk, precls,
+    deep heads, EAMs).
+
+    New gn_relu shapes (UNet3DDeepSup's deep heads) are first held against
+    the plain version (phase 2's check); then per model, on phase 3's bf16
+    tile batch: the logits kernel vs plain (conv_impl, gn_impl 'plain')
+    within rel L2 3e-2 (phase 3's limit), every output (logits, deep maps,
+    the EAM cascade's tokens and attention maps) of the kernel route at most
+    F32_RATIO times as far from an f32 forward (the plain route on the f32
+    input) as the plain bf16 route's, the kernel calls of the forward exactly (18 fused and
+    4 prologue-off conv3x3_gn, 18 folds, 4 resize3d and ablation_gn_keys'
+    gn_relu calls, each shape one that phase 2 or this phase checked), and
+    for UNet3DBaseline, UNet3DDeepSup(aux=False) and UNet3DEAM(aux=False) the
+    bits of the FEAM's aux=False logits; UNet3DBaseline and UNet3DDynHead
+    (task ABLATION_VOL_TASK) then serve phase 4's volume through
+    SlidingWindowPredictor(output='argmax'): label maps of the kernel and
+    the plain model agree on >= 0.95 of the voxels, the calls per volume (3
+    tile batches), s/vol (median of TIMED_VOLS one-shot runs, the FEAM's
+    aux=False predictor timed alike). utils/profiling.trace around one UNet3DBaseline
+    forward writes a Chrome trace with device kernel events, at least one
+    per wrapper call of each of the port's kernels (into a temporary
+    directory). Last, the loss zoo (``phase_loss_zoo``). Returns
+    {model: {kernel: Counter of calls per volume}} for the serving runs."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
+    from multimodal_pl_tpu_torch.tools import profile_chip
+    from multimodal_pl_tpu_torch.utils import profiling
+
+    TRACE_KERNELS = {"conv3x3_gn kernel": 22, "GroupNorm fold statistics kernel": 18,
+                     "gn_relu forward kernel": 17, profile_chip.RESIZE_KERNEL: 4}
+
+    def reset():
+        conv3x3.reset_launches()
+        norm.fold_launches.clear()
+        gn_relu.reset_launches()
+        resize.reset_launches()
+
+    def calls():
+        return {"conv3x3": Counter(conv3x3.launches), "fold": Counter(norm.fold_launches),
+                "gn_relu": Counter(gn_relu.launches), "resize": Counter(resize.launches)}
+
+    zoo = ablation_models()
+    expected_gn = {(name, aux): ablation_gn_keys(name, aux) for name in zoo
+                   for aux in (True, False)}
+    new = set().union(*expected_gn.values()) - set(tables["gn_relu"])
+    print(f"[13] gn_relu forward kernel vs plain at the ablations' {len(new)} further shapes",
+          flush=True)
+    tables["gn_relu"].update(phase_gn(dev, results, new, "gn_relu_ablation"))
+    x = torch.randn((WINDOW_BATCH, *TILE, 1), generator=torch.Generator().manual_seed(2)).to(
+        dev, torch.bfloat16)
+    tasks = torch.tensor(ABLATION_TASKS, device=dev)
+    feam_sd = feam.state_dict()
+    with torch.inference_mode():
+        feam_logits = feam(x, aux=False)
+
+    def predictor(fn, nc):
+        return SlidingWindowPredictor(fn, TILE, nc, window_batch=WINDOW_BATCH,
+                                      compute_dtype=torch.bfloat16, device=dev, output="argmax")
+
+    def s_per_vol(pred):
+        """Median seconds of TIMED_VOLS one-shot runs after a warm-up."""
+        pred(vol)
+        times = []
+        for _ in range(TIMED_VOLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred(vol)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)), times
+
+    feam_s, feam_times = s_per_vol(predictor(lambda t: feam(t, aux=False), NC))
+    out = {"feam_s_per_vol": feam_s, "feam_times": feam_times}
+    serving, dyn_logits = {}, None
+    for name, (cls, kw, nc) in zoo.items():
+        nets = {impl: cls(**kw, conv_impl=impl, gn_impl=impl,
+                          generator=torch.Generator().manual_seed(13)) for impl in ("kernel",
+                                                                                    "plain")}
+        sd = nets["kernel"].state_dict()
+        shared = sorted(k for k in sd if k in feam_sd and feam_sd[k].shape == sd[k].shape)
+        sd.update({k: feam_sd[k] for k in shared})
+        for net in nets.values():
+            net.load_state_dict(sd)
+            net.to(dev).eval()
+
+        def run(net, aux=True, x32=False, name=name):
+            xin = x.float() if x32 else x
+            if name == "dynhead":
+                return net(xin, tasks)
+            return net(xin) if name == "baseline" else net(xin, aux=aux)
+
+        row = {"shared_params": len(shared), "params": len(sd)}
+        with torch.inference_mode():
+            reset()
+            got = _flat(run(nets["kernel"]))
+            torch.cuda.synchronize()
+            launched = calls()
+            want = _flat(run(nets["plain"]))
+            row["rel_l2"] = [_rel(a, b) for a, b in zip(got, want, strict=True)]
+            row["shapes"] = [list(t.shape) for t in got]
+            check(all(bool(torch.isfinite(t).all()) for t in got), f"{name}: outputs not finite")
+            check(tuple(got[0].shape) == (WINDOW_BATCH, *TILE, nc), f"{name} logits {got[0].shape}")
+            check(row["rel_l2"][0] <= 3e-2, f"{name} logits kernel vs plain rel L2 "
+                  f"{row['rel_l2'][0]} > 3e-2")
+            f32 = _flat(run(nets["plain"], x32=True))
+            row["kernel_vs_f32"] = [_rel(a, b) for a, b in zip(got, f32, strict=True)]
+            row["plain_vs_f32"] = [_rel(a, b) for a, b in zip(want, f32, strict=True)]
+            check(all(k <= F32_RATIO * p for k, p in zip(row["kernel_vs_f32"], row["plain_vs_f32"])),
+                  f"{name} kernel route further from the f32 forward than {F32_RATIO} x the plain "
+                  f"route's: {row['kernel_vs_f32']} vs {row['plain_vs_f32']}")
+            del f32
+            totals = {spec: sum(n for k, n in launched["conv3x3"].items() if k[0] == spec)
+                      for spec in conv3x3.SPECS}
+            row["calls"] = {"conv3x3": totals, "fold": sum(launched["fold"].values()),
+                            "gn_relu": sum(launched["gn_relu"].values()),
+                            "resize": sum(launched["resize"].values())}
+            check(totals == {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
+                             conv3x3.TRAIN_DX: 0}, f"{name} conv3x3_gn calls {totals} != 18 + 4")
+            check(sum(launched["fold"].values()) == 18, f"{name} fold calls {launched['fold']}")
+            check(launched["gn_relu"] == expected_gn[(name, True)],
+                  f"{name} gn_relu calls {dict(launched['gn_relu'])} != the derived "
+                  f"{dict(expected_gn[(name, True)])}")
+            check(launched["resize"] == serving_resize_keys(), f"{name} resize3d calls "
+                  f"{dict(launched['resize'])}")
+            missing = (sorted(set(launched["conv3x3"]) - set(tables["conv3x3"]))
+                       + sorted(set(launched["fold"]) - set(tables["fold"]))
+                       + sorted(set(launched["gn_relu"]) - set(tables["gn_relu"]))
+                       + sorted(set(launched["resize"]) - set(tables["resize"])))
+            check(not missing, f"{name} launched shapes no phase checked: {missing}")
+            if name in ("baseline", "deepsup", "eam3", "eam2"):
+                reset()
+                trunk = run(nets["kernel"], aux=False)
+                torch.cuda.synchronize()
+                check(calls()["gn_relu"] == expected_gn[(name, False)],
+                      f"{name}(aux=False) gn_relu calls {dict(calls()['gn_relu'])}")
+                row["trunk_bits_equal"] = bool(torch.equal(trunk, feam_logits))
+                check(row["trunk_bits_equal"], f"{name}(aux=False) logits are not the FEAM's "
+                      f"aux=False logits: max diff {(trunk.float() - feam_logits.float()).abs().max()}")
+            if name == "dynhead":
+                dyn_logits = got[0][:, :LOSS_CROP[0], :LOSS_CROP[1], :LOSS_CROP[2]].float().cpu()
+            del got, want
+        if name in ("baseline", "dynhead"):
+            if name == "dynhead":
+                vt = ABLATION_VOL_TASK
+
+                def fns(net):
+                    return lambda t: net(t, torch.full((t.shape[0],), vt, device=t.device))
+            else:
+                def fns(net):
+                    return net
+            preds = {impl: predictor(fns(net), nc) for impl, net in nets.items()}
+            secs, times = s_per_vol(preds["kernel"])
+            reset()
+            labels = preds["kernel"](vol)
+            torch.cuda.synchronize()
+            per_vol = calls()
+            check(labels.dtype == torch.uint8 and tuple(labels.shape) == VOL
+                  and int(labels.max()) < nc, f"{name} label map {labels.dtype} {labels.shape}")
+            tile_batch = {"conv3x3": launched["conv3x3"], "fold": launched["fold"],
+                          "gn_relu": expected_gn[(name, True)],
+                          "resize": serving_resize_keys()}
+            for k, per_batch in tile_batch.items():
+                want_vol = Counter({key: 3 * n for key, n in per_batch.items()})
+                check(per_vol[k] == want_vol, f"{name} {k} calls per volume {dict(per_vol[k])}"
+                      f" != 3 tile batches' {dict(want_vol)}")
+            agree = (preds["plain"](vol) == labels).float().mean().item()
+            check(agree >= 0.95, f"{name} label agreement with the plain model {agree} < 0.95")
+            row.update(s_per_vol=secs, times=times, label_agreement=agree,
+                       calls_per_volume={k: sum(v.values()) for k, v in per_vol.items()})
+            serving[name] = (per_vol, tile_batch)
+            print(f"[13] {name} over the {VOL} volume: {secs:.4f} s/vol (FEAM {feam_s:.4f}; median "
+                  f"of {TIMED_VOLS}),"
+                  f" label agreement with plain {agree:.5f}, calls per volume "
+                  f"{row['calls_per_volume']}", flush=True)
+        if name == "baseline":
+            with tempfile.TemporaryDirectory() as tdir, torch.inference_mode():
+                with profiling.trace(tdir):
+                    nets["kernel"](x)
+                    torch.cuda.synchronize()
+                (path,) = [os.path.join(tdir, f) for f in os.listdir(tdir)]
+                size = os.path.getsize(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            kern = Counter(profile_chip._category(e["name"]) for e in events
+                           if e.get("cat") == "kernel")
+            ours = {cat: kern[cat] for cat, calls in TRACE_KERNELS.items()}
+            row["trace"] = {"device_kernel_events": sum(kern.values()), "by_category": dict(kern),
+                            "bytes": size}
+            check(all(ours[cat] >= calls for cat, calls in TRACE_KERNELS.items()),
+                  f"trace of a UNet3DBaseline forward: device kernel events {dict(kern)}, "
+                  f"wanted at least {TRACE_KERNELS}")
+            print(f"[13] trace of one UNet3DBaseline forward ({size} bytes): "
+                  f"{sum(kern.values())} device kernel events, the port's {ours}", flush=True)
+        print(f"[13] {name}: outputs {row['shapes']} kernel vs plain rel L2 "
+              f"{[round(v, 5) for v in row['rel_l2']]}, kernel / plain vs f32 "
+              f"{[round(k, 5) for k in row['kernel_vs_f32']]} / "
+              f"{[round(p, 5) for p in row['plain_vs_f32']]}; calls per tile batch {row['calls']}"
+              + (f"; trunk == FEAM aux=False bits: {row['trunk_bits_equal']}"
+                 if "trunk_bits_equal" in row else ""), flush=True)
+        out[name] = row
+        del nets
+        torch.cuda.empty_cache()
+    out["loss_zoo"] = phase_loss_zoo(dev, dyn_logits)
+    results["ablations"] = out
+    return serving
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -1653,7 +2079,7 @@ def main() -> int:
 
 
 def run_phases(amos_data) -> int:
-    """Phases 1-10; ``amos_data``: a future of phase 10's synthetic cases."""
+    """Phases 1-13; ``amos_data``: a future of phase 10's synthetic cases."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
@@ -1671,7 +2097,7 @@ def run_phases(amos_data) -> int:
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
                "fold": [], "gn_relu": [], "gn_relu_serving": [], "gn_relu_backward": [],
-               "conv3x3_train": [], "resize": [], "phase_s": {}}
+               "conv3x3_train": [], "resize": [], "gn_relu_ablation": [], "phase_s": {}}
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -1904,6 +2330,13 @@ def run_phases(amos_data) -> int:
          "resize": per_forward_resize})
     phase_done("data parallel")
 
+    # ---- phase 13: the ablation U-Nets at full width ----------------------------
+    ablation_serving = phase_ablations(
+        dev, results, model, vol, {"conv3x3": table, "fold": fold_table,
+                                   "gn_relu": dict(gn_serving_table),
+                                   "resize": resize_serving_table})
+    phase_done("ablations")
+
     def entry(name, source, replaces, launches, rows):
         """One kernels-line entry from (calls, per-shape row) pairs."""
         libs = [n * r["library_ms"] for n, r in rows if r["library_ms"] is not None]
@@ -2018,6 +2451,25 @@ def run_phases(amos_data) -> int:
                 entry(f"resize3d forward (x2 upsample + skip), sharded serving, {tag}",
                       RESIZE_SOURCE, RESIZE, sum(dp_serving_run["resize"].values()),
                       [(n, resize_serving_table[k]) for k, n in serving_resize.items()])]
+    # the ablations' serving path (phase 13): calls per volume, per-shape
+    # times of phase 2 summed over one 4-tile forward's calls
+    for name, (per_vol, tile_batch) in ablation_serving.items():
+        tag = f"ablation serving, {ablation_models()[name][0].__name__}"
+        for spec, label, replaces in ((conv3x3.FUSED, "conv3x3_gn fused GN-ReLU prologue", BDX),
+                                      (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3)):
+            kernels.append(entry(f"{label}, {tag}", SOURCE, replaces,
+                                 sum(n for k, n in per_vol["conv3x3"].items() if k[0] == spec),
+                                 [(n, serving[k]) for k, n in tile_batch["conv3x3"].items()
+                                  if k[0] == spec]))
+        for key, label, src, replaces, table_ in (
+                ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
+                 fold_table),
+                ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU,
+                 gn_serving_table),
+                ("resize", "resize3d forward (x2 upsample + skip)", RESIZE_SOURCE, RESIZE,
+                 resize_serving_table)):
+            kernels.append(entry(f"{label}, {tag}", src, replaces, sum(per_vol[key].values()),
+                                 [(n, table_[k]) for k, n in tile_batch[key].items()]))
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

@@ -4,8 +4,11 @@
   dicts of arrays) and class tokens into a reference-style ``state_dict``
   (the layout of ``multimodal_pl_tpu/train/torch_import.py:154``), which the
   port's model loads as it is. The same mapping serves the refiner (the
-  inverse of ``torch_import.refiner_state_dict_to_params``) and the
-  discriminators (their ``blockN``/``min_blockN``/``head`` names).
+  inverse of ``torch_import.refiner_state_dict_to_params``), the
+  discriminators and their variants (``blockN``/``min_blockN``/``head``,
+  ``fc1-3``), the ablation U-Nets (the trunk's flat names; ``class_token``,
+  ``linear84_2_42``, ``gap_gn``, ``controller`` as the JAX tree names them:
+  their original torch source is absent) and the EAM variants.
 - :func:`train_state_from_jax` carries a whole JAX ``TrainState`` across as
   the port's :class:`~multimodal_pl_tpu_torch.train.state.TrainState`.
 - :func:`read_orbax_train_state` reads a JAX ``TrainState`` that the JAX

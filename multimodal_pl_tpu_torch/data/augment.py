@@ -1,5 +1,6 @@
-"""Intensity augmentation (the reference's batchgenerators recipe): the
-``intensity_augment`` of ``multimodal_pl_tpu/data/augment.py`` as two steps,
+"""Intensity augmentation (the reference's batchgenerators recipe) and
+``mask_aug``, copies from ``multimodal_pl_tpu/data/augment.py``: its
+``intensity_augment`` as two steps,
 its random draws in its order (:func:`draw_intensity`) and their application
 (:func:`apply_intensity`), so that a data-parallel rank can draw another
 rank's batch without building it.
@@ -70,3 +71,9 @@ def apply_intensity(image: np.ndarray, draws: list) -> np.ndarray:
         out[i] = x
     return out
 
+
+def mask_aug(mask: np.ndarray, aug_times: int = 2) -> np.ndarray:
+    """Duplicate each sample aug_times times (reference utils.py:76-114)."""
+    if aug_times <= 1:
+        return mask
+    return np.repeat(mask, aug_times, axis=0)

@@ -20,6 +20,11 @@ from multimodal_pl_tpu_torch.ops.resize import resize_nearest
 DEEP_WEIGHTS = (0.125, 0.25, 0.5, 1.0)  # losses.py:116
 
 
+def _nearest_labels(labels: torch.Tensor, spatial) -> torch.Tensor:
+    """Nearest-downsample an integer label volume (B, D, H, W)."""
+    return resize_nearest(labels[..., None], spatial)[..., 0]
+
+
 def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torch.Tensor,
                       deep_outs: Sequence[torch.Tensor], attns: Sequence[torch.Tensor],
                       refiner_logits: torch.Tensor | None = None,
@@ -40,7 +45,7 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torc
 
     aux = 0.0
     for idx, d in enumerate(deep_outs):
-        ct = resize_nearest(labels[..., None], d.shape[1:4])[..., 0]
+        ct = _nearest_labels(labels, d.shape[1:4])
         aux = aux + edice_partial(d, ct, sup_mask, uce=False) * DEEP_WEIGHTS[idx]
 
     if refiner_logits is None:

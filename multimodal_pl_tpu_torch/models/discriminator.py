@@ -1,12 +1,14 @@
 """Modality (CT vs MRI) style discriminators, port of
-``multimodal_pl_tpu/models/discriminator.py:52-98`` (reference
-unet3D.py:1852-1947).
+``multimodal_pl_tpu/models/discriminator.py`` (reference
+unet3D.py:1814-1956).
 
 Stride-2 k4 p1 Conv3d + LeakyReLU(0.2) pyramids over (organ probability,
-atlas) channel pairs, a global mean pool and a Linear(..., 2) head. The JAX
-package runs these convs in XLA, so here they are library convs. Block names
-follow the JAX modules (``block1``, ``block2``, ``block3``, ``block4a``, ...,
-``head``).
+atlas) channel pairs, a global mean pool and a Linear head (two logits; one
+for :class:`StyleDiscriminatorOutput`); :class:`StyleDiscriminatorLinear`
+is three Linears with LeakyReLU between them. The JAX package runs these
+convs in XLA, so here they are library convs. Layer names follow the JAX
+modules (``block1``, ``block2``, ``block3``, ``block4a``, ..., ``head``,
+``fc1-3``).
 """
 
 from __future__ import annotations
@@ -87,3 +89,34 @@ class DeepStyleDiscriminator(nn.Module):
         for block in (self.block4a, self.block4b, self.block4c):
             x = _lrelu(block(x))
         return _linear(self.head, x.mean(dim=(1, 2, 3)))
+
+
+class StyleDiscriminatorOutput(NormStyleDiscriminator):
+    """get_style_discriminator_output (unet3D.py:1832-1849): the depth-6
+    pyramid of NormStyleDiscriminator (ndf, 2, 4, 8, 8, 8 x ndf), a mean pool
+    and one logit."""
+
+    def __init__(self, ndf: int = 32, in_channel: int = 2,
+                 generator: torch.Generator | None = None):
+        generator = generator or torch.Generator().manual_seed(0)
+        super().__init__(ndf, 6, in_channel, generator)
+        self.head = init_default_(nn.Linear(ndf * 8, 1), generator)
+
+
+class StyleDiscriminatorLinear(nn.Module):
+    """get_style_discriminator_linear (unet3D.py:1950-1956): Linear(in,
+    ndf) -> LeakyReLU -> Linear(ndf, 2 ndf) -> LeakyReLU -> Linear(2 ndf, 1)
+    over the last axis."""
+
+    def __init__(self, in_features: int, ndf: int = 64,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, ndf)
+        self.fc2 = nn.Linear(ndf, ndf * 2)
+        self.fc3 = nn.Linear(ndf * 2, 1)
+        init_default_(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x):
+        x = _lrelu(_linear(self.fc1, x))
+        x = _lrelu(_linear(self.fc2, x))
+        return _linear(self.fc3, x)

@@ -1,10 +1,13 @@
 """EAM: class-token cross-attention over flattened voxel features, port of
-``multimodal_pl_tpu/models/eam.py`` (reference unet3D.py:142-212).
+``multimodal_pl_tpu/models/eam.py`` (reference unet3D.py:142-212 EAM,
+:214-278 EAM_bk, :76-140 EAM_identity).
 
-Class tokens are the queries; voxel features are keys and values. The module
-returns the updated tokens and the raw (unscaled, pre-softmax) scores, in
-f32 whatever the input dtype; the head-averaged raw scores are the per-class
-attention map.
+Class tokens are the queries; voxel features are keys and values. Each
+module returns the updated tokens and the pre-softmax scores, in f32
+whatever the input dtype; the head-averaged scores are the per-class
+attention map. :class:`EAM` scales the scores after the product and returns
+them unscaled; :class:`EAMBK` and :class:`EAMIdentity` scale the queries in
+the working dtype before the product and return the scaled scores.
 """
 
 from __future__ import annotations
@@ -37,6 +40,29 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
 
 
+def _attend(q, k, v, scale: float, *, scale_before_softmax: bool):
+    """q: (B, h, Nt, dh); k, v: (B, h, N, dh). Returns (out (B, Nt, h*dh),
+    scores (B, h, Nt, N) f32). scale_before_softmax: the product is scaled
+    in f32 before the softmax and the unscaled product returned; else q is
+    scaled in its own dtype first and the product is both softmaxed and
+    returned (JAX ``_attend``, eam.py:50-61)."""
+    if not scale_before_softmax:
+        q = q * scale
+    attn = q.float() @ k.float().transpose(-1, -2)
+    scores = attn * scale if scale_before_softmax else attn
+    attnf = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = (attnf.float() @ v.float()).to(v.dtype)
+    b, h, nt, dh = out.shape
+    return out.transpose(1, 2).reshape(b, nt, h * dh), attn
+
+
+def _broadcast_tokens(tokens: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A singleton token batch broadcasts over the voxel batch."""
+    if tokens.shape[0] != x.shape[0]:
+        tokens = tokens.expand(x.shape[0], *tokens.shape[1:])
+    return tokens
+
+
 class EAM(nn.Module):
     """Pre-norm cross-attention. norm2 is shared between the voxel features
     and the output-projection branch, as in the reference (:191 and :206);
@@ -54,18 +80,57 @@ class EAM(nn.Module):
     def forward(self, x: torch.Tensor, tokens: torch.Tensor):
         """x: (B, N, C) voxels; tokens: (B or 1, Nt, C). Returns
         (out (B, Nt, C), raw scores (B, heads, Nt, N) f32)."""
-        if tokens.shape[0] != x.shape[0]:
-            tokens = tokens.expand(x.shape[0], *tokens.shape[1:])
+        tokens = _broadcast_tokens(tokens, x)
         h = self.num_heads
-        scale = (self.dim // h) ** -0.5
         k, v = _linear(self.kv, self.norm2(x)).chunk(2, dim=-1)
         q = _linear(self.q, self.norm3(tokens))
-        q, k, v = (_split_heads(t, h) for t in (q, k, v))
-        attn = q.float() @ k.float().transpose(-1, -2)
-        attnf = torch.softmax(attn * scale, dim=-1).to(v.dtype)
-        out = (attnf.float() @ v.float()).to(v.dtype)
-        b, _, nt, dh = out.shape
-        out = out.transpose(1, 2).reshape(b, nt, h * dh)
+        out, attn = _attend(*(_split_heads(t, h) for t in (q, k, v)), (self.dim // h) ** -0.5,
+                            scale_before_softmax=True)
+        out = _linear(self.proj, self.norm2(out)) + out
+        return out, attn
+
+
+class EAMBK(nn.Module):
+    """Un-normed variant with biased kv and q projections (reference
+    unet3D.py:214-278)."""
+
+    def __init__(self, dim: int, num_heads: int = 4):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.kv = nn.Linear(dim, dim * 2)
+        self.q = nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+        self.norm2 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, tokens: torch.Tensor):
+        """As :meth:`EAM.forward`; the scores are the scaled ones."""
+        tokens = _broadcast_tokens(tokens, x)
+        h = self.num_heads
+        k, v = _linear(self.kv, x).chunk(2, dim=-1)
+        q = _linear(self.q, tokens)
+        out, attn = _attend(*(_split_heads(t, h) for t in (q, k, v)), (self.dim // h) ** -0.5,
+                            scale_before_softmax=False)
+        out = _linear(self.proj, self.norm2(out)) + out
+        return out, attn
+
+
+class EAMIdentity(nn.Module):
+    """No-projection variant: q = tokens, k = v = x (reference
+    unet3D.py:76-140)."""
+
+    def __init__(self, dim: int, num_heads: int = 4):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.proj = nn.Linear(dim, dim)
+        self.norm2 = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, tokens: torch.Tensor):
+        """As :meth:`EAM.forward`; the scores are the scaled ones."""
+        tokens = _broadcast_tokens(tokens, x)
+        h = self.num_heads
+        xs = _split_heads(x, h)
+        out, attn = _attend(_split_heads(tokens, h), xs, xs, (self.dim // h) ** -0.5,
+                            scale_before_softmax=False)
         out = _linear(self.proj, self.norm2(out)) + out
         return out, attn
 

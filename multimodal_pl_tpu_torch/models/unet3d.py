@@ -1,7 +1,18 @@
-"""The flagship FEAM segmenter, port of ``UNet3DFEAM`` and ``Encoder`` of
-``multimodal_pl_tpu/models/unet3d.py`` (voxel branch; reference
+"""The 3D U-Net family, port of ``multimodal_pl_tpu/models/unet3d.py``
+(voxel branch): the flagship FEAM segmenter ``UNet3DFEAM`` (reference
 ``unet3D_with_feam3``, unet3D.py:938-1190, and with ``token_update='pre'``
-``unet3D_with_feam2``, unet3D.py:721-936).
+``unet3D_with_feam2``, unet3D.py:721-936) and the ablations
+``UNet3DDeepSup`` (:280-429), ``UNet3DEAM`` (:431-582; ``num_eams=2`` is
+the truncated ``unet3D_with_eam_baseline``, :1370-1504), ``UNet3DBaseline``
+(:584-718) and the DoDNet-style dynamic head ``UNet3DDynHead``
+(:1625-1806).
+
+All five share one trunk (:class:`Trunk`, JAX ``Encoder`` and the decoder
+stages), under the reference's flat ``state_dict`` names (``conv1``,
+``layer0-4``, ``fusionConv``, ``x8/x4/x2/x1_resb``): with the same weights
+the Baseline's, the DeepSup's and the EAM ablation's logits are the FEAM's
+``aux=False`` logits bit for bit, since their other branches never feed the
+logits.
 
 Structure (layers=(1,2,2,2,2), base=32): conv1 1->32; encoder stages
 32,64,128,256,256 (stride 2 from stage 1); GN-ReLU-1x1 fusion; decoder: x2
@@ -9,8 +20,8 @@ trilinear upsample + additive skip + a 1-block stage at 128/64/32/32;
 deep-supervision heads and EAMs at the first three decoder scales; a
 GN-ReLU-1x1 classifier.
 
-``forward(x, tokens, mask=None, aux=True)`` returns ``(logits, attn_maps,
-deep_maps, features, tokens)`` as the JAX model does. With
+``UNet3DFEAM.forward(x, tokens, mask=None, aux=True)`` returns ``(logits,
+attn_maps, deep_maps, features, tokens)`` as the JAX model does. With
 ``token_update='pre'`` (feam2) and a label ``mask``, each EAM scale first
 moves its class tokens by the EMA of the masked class means of the detached
 features (JAX ``maybe_pre_update``, unet3d.py:193-199) and the EAM consumes
@@ -39,45 +50,37 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from multimodal_pl_tpu_torch.models.blocks import (
     GNReLUConv,
+    GroupNorm,
     ResStage,
     WSConv3d,
     init_default_,
 )
-from multimodal_pl_tpu_torch.models.eam import EAM, attn_to_map
+from multimodal_pl_tpu_torch.models.eam import EAM, _linear, attn_to_map
 from multimodal_pl_tpu_torch.models.tokens import ema_update_tokens
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest, upsample_trilinear
 
 
-class UNet3DFEAM(nn.Module):
-    """FEAM segmenter. ``token_update='post'`` (feam3): tokens are consumed
-    detached and returned unchanged; the caller updates them. ``'pre'``
-    (feam2): the forward updates them from ``mask`` before each EAM."""
+class Trunk(nn.Module):
+    """conv1, the five encoder stages, the GN-ReLU-1x1 fusion head and the
+    four one-block decoder stages (x2 trilinear upsample + additive skip) of
+    every U-Net of the family; the subclasses add their heads."""
 
-    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
-                 weight_std: bool = True, use_cm: Sequence[bool] = (True, True, True),
-                 deep_up: bool = False, base: int = 32, token_update: str = "post",
-                 token_alpha: float = 0.01, conv_impl: str = "kernel", gn_impl: str = "kernel",
-                 remat: bool = False, generator: torch.Generator | None = None):
+    def __init__(self, layers: Sequence[int], base: int, weight_std: bool, conv_impl: str,
+                 gn_impl: str, remat: bool = False):
         super().__init__()
-        if token_update not in ("post", "pre"):
-            raise ValueError(f"token_update must be 'post' or 'pre', got {token_update!r}")
-        b, nc, ws = base, num_classes, weight_std
-        self.num_classes, self.use_cm, self.deep_up = nc, tuple(use_cm), deep_up
-        self.token_update, self.token_alpha = token_update, token_alpha
-        self.remat, self.conv_impl = remat, conv_impl
+        b, ws = base, weight_std
+        self.remat, self.conv_impl, self.gn_impl = remat, conv_impl, gn_impl
 
         def stage(cin, cout, blocks, stride):
             return ResStage(cin, cout, blocks, stride, weight_std=ws, conv_impl=conv_impl,
                             gn_impl=gn_impl)
-
-        def head(cin, cout, **kw):
-            return GNReLUConv(cin, cout, 16, gn_impl=gn_impl, **kw)
 
         self.conv1 = WSConv3d(1, b, 3, 1, 1, weight_std=ws)
         self.layer0 = stage(b, b, layers[0], 1)
@@ -85,69 +88,33 @@ class UNet3DFEAM(nn.Module):
         self.layer2 = stage(b * 2, b * 4, layers[2], 2)
         self.layer3 = stage(b * 4, b * 8, layers[3], 2)
         self.layer4 = stage(b * 8, b * 8, layers[4], 2)
-        self.fusionConv = head(b * 8, b * 8, weight_std=ws, bias=False)
+        self.fusionConv = self.head(b * 8, b * 8, weight_std=ws, bias=False)
         self.x8_resb = stage(b * 8, b * 4, 1, 1)
         self.x4_resb = stage(b * 4, b * 2, 1, 1)
         self.x2_resb = stage(b * 2, b, 1, 1)
         self.x1_resb = stage(b, b, 1, 1)
-        self.deepout1 = head(b * 4, nc)
-        self.deepout2 = head(b * 2, nc)
-        self.deepout3 = head(b, nc)
-        self.precls_conv = head(b, nc)
-        self.eam84 = EAM(b * 4, num_heads=4)
-        self.eam42 = EAM(b * 2, num_heads=4)
-        self.eam21 = EAM(b, num_heads=4)
-        init_default_(self, generator or torch.Generator().manual_seed(0))
 
-    def forward(self, x: torch.Tensor, tokens: Dict[str, torch.Tensor] | None = None,
-                mask: torch.Tensor | None = None, aux: bool = True, deep: bool = True):
-        """x: (B, D, H, W, 1) with D, H, W multiples of 16; tokens:
-        {'t1': (C-1, 4*base), 't2': (C-1, 2*base), 't3': (C-1, base)}, needed
-        only when aux; mask: (B, D, H, W) labels, read only with
-        token_update='pre'. Returns (logits, attn_maps, deep_maps, features,
-        tokens), or the logits alone when not aux; deep_maps is empty when
-        not deep."""
-        full_spatial = tuple(x.shape[1:4])
+    def head(self, cin: int, cout: int, **kw) -> GNReLUConv:
+        return GNReLUConv(cin, cout, 16, gn_impl=self.gn_impl, **kw)
+
+    def encode(self, x: torch.Tensor):
+        """x: (B, D, H, W, 1) -> ((skip0, skip1, skip2, skip3), the fusion
+        head's output at 1/16 scale)."""
         stage = self._stage
         x = self.conv1(x)
         skip0 = x = stage(self.layer0, x)
         skip1 = x = stage(self.layer1, x)
         skip2 = x = stage(self.layer2, x)
         skip3 = x = stage(self.layer3, x)
-        x = self.fusionConv(stage(self.layer4, x))
+        return (skip0, skip1, skip2, skip3), self.fusionConv(stage(self.layer4, x))
 
-        attn_maps, deep_maps, features = [], [], []
-        new_tokens = dict(tokens) if aux else {}
-        pre = self.token_update == "pre" and mask is not None
-        scales = ((skip3, self.x8_resb, self.deepout1, self.eam84, "t1"),
-                  (skip2, self.x4_resb, self.deepout2, self.eam42, "t2"),
-                  (skip1, self.x2_resb, self.deepout3, self.eam21, "t3"))
-        for i, (skip, resb, head, eam, key) in enumerate(scales):
-            x = stage(resb, upsample_trilinear(x, 2, skip, self.conv_impl))
-            if not aux:
-                continue
-            if deep:
-                deep_maps.append(head(x))
-            features.append(x.detach())
-            if pre:
-                m = resize_nearest(mask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
-                new_tokens[key] = ema_update_tokens(new_tokens[key], x.detach(), m,
-                                                    self.token_alpha)
-            if self.use_cm[i]:
-                x_t = x.reshape(x.shape[0], -1, x.shape[-1])
-                tok = new_tokens[key].detach().to(x.dtype)
-                _, attn = eam(x_t, tok[None])
-                amap = attn_to_map(attn, x.shape[1:4])
-                if self.deep_up:
-                    amap = upsample_trilinear(amap, full_spatial[0] // amap.shape[1],
-                                              impl=self.conv_impl)
-                attn_maps.append(amap)
-
-        x = stage(self.x1_resb, upsample_trilinear(x, 2, skip0, self.conv_impl))
-        logits = self.precls_conv(x)
-        if not aux:
-            return logits
-        return logits, attn_maps, deep_maps, features, new_tokens
+    def decode(self, x: torch.Tensor, skips):
+        """Yields the output of each decoder stage in turn (1/8, 1/4, 1/2
+        and full scale) from the encoder's bottom ``x`` and ``skips``."""
+        for skip, resb in zip(reversed(skips),
+                              (self.x8_resb, self.x4_resb, self.x2_resb, self.x1_resb)):
+            x = self._stage(resb, upsample_trilinear(x, 2, skip, self.conv_impl))
+            yield x
 
     def _stage(self, stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """stage(x), checkpointed when ``remat`` is set and autograd records.
@@ -169,3 +136,215 @@ class UNet3DFEAM(nn.Module):
             return functional_call(stage, dict(zip(names, params)), (x,))
 
         return checkpoint(run, x, *tensors, use_reentrant=False, preserve_rng_state=False)
+
+
+class UNet3DFEAM(Trunk):
+    """FEAM segmenter. ``token_update='post'`` (feam3): tokens are consumed
+    detached and returned unchanged; the caller updates them. ``'pre'``
+    (feam2): the forward updates them from ``mask`` before each EAM."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
+                 weight_std: bool = True, use_cm: Sequence[bool] = (True, True, True),
+                 deep_up: bool = False, base: int = 32, token_update: str = "post",
+                 token_alpha: float = 0.01, conv_impl: str = "kernel", gn_impl: str = "kernel",
+                 remat: bool = False, generator: torch.Generator | None = None):
+        if token_update not in ("post", "pre"):
+            raise ValueError(f"token_update must be 'post' or 'pre', got {token_update!r}")
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, remat)
+        b, nc = base, num_classes
+        self.num_classes, self.use_cm, self.deep_up = nc, tuple(use_cm), deep_up
+        self.token_update, self.token_alpha = token_update, token_alpha
+        self.deepout1 = self.head(b * 4, nc)
+        self.deepout2 = self.head(b * 2, nc)
+        self.deepout3 = self.head(b, nc)
+        self.precls_conv = self.head(b, nc)
+        self.eam84 = EAM(b * 4, num_heads=4)
+        self.eam42 = EAM(b * 2, num_heads=4)
+        self.eam21 = EAM(b, num_heads=4)
+        init_default_(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor, tokens: Dict[str, torch.Tensor] | None = None,
+                mask: torch.Tensor | None = None, aux: bool = True, deep: bool = True):
+        """x: (B, D, H, W, 1) with D, H, W multiples of 16; tokens:
+        {'t1': (C-1, 4*base), 't2': (C-1, 2*base), 't3': (C-1, base)}, needed
+        only when aux; mask: (B, D, H, W) labels, read only with
+        token_update='pre'. Returns (logits, attn_maps, deep_maps, features,
+        tokens), or the logits alone when not aux; deep_maps is empty when
+        not deep."""
+        full_spatial = tuple(x.shape[1:4])
+        skips, x = self.encode(x)
+        attn_maps, deep_maps, features = [], [], []
+        new_tokens = dict(tokens) if aux else {}
+        pre = self.token_update == "pre" and mask is not None
+        scales = ((self.deepout1, self.eam84, "t1"), (self.deepout2, self.eam42, "t2"),
+                  (self.deepout3, self.eam21, "t3"))
+        for i, x in enumerate(self.decode(x, skips)):
+            if i == 3 or not aux:
+                continue
+            head, eam, key = scales[i]
+            if deep:
+                deep_maps.append(head(x))
+            features.append(x.detach())
+            if pre:
+                m = resize_nearest(mask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
+                new_tokens[key] = ema_update_tokens(new_tokens[key], x.detach(), m,
+                                                    self.token_alpha)
+            if self.use_cm[i]:
+                x_t = x.reshape(x.shape[0], -1, x.shape[-1])
+                tok = new_tokens[key].detach().to(x.dtype)
+                _, attn = eam(x_t, tok[None])
+                amap = attn_to_map(attn, x.shape[1:4])
+                if self.deep_up:
+                    amap = upsample_trilinear(amap, full_spatial[0] // amap.shape[1],
+                                              impl=self.conv_impl)
+                attn_maps.append(amap)
+
+        logits = self.precls_conv(x)
+        if not aux:
+            return logits
+        return logits, attn_maps, deep_maps, features, new_tokens
+
+
+class UNet3DBaseline(Trunk):
+    """Plain residual U-Net (reference unet3D_baseline :584-718): the trunk
+    and the GN-ReLU-1x1 classifier. ``forward(x)`` returns the logits."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
+                 weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        self.precls_conv = self.head(base, num_classes)
+        init_default_(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skips, x = self.encode(x)
+        for x in self.decode(x, skips):
+            pass
+        return self.precls_conv(x)
+
+
+class UNet3DDeepSup(Trunk):
+    """Deep-supervision-only ablation (reference unet3D_with_deepsup
+    :280-429). ``forward(x, aux=True)`` returns (logits, [three deep maps at
+    1/8, 1/4, 1/2 scale]), or the logits alone when not aux (the deep heads
+    are then skipped)."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
+                 weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        b, nc = base, num_classes
+        self.deepout1 = self.head(b * 4, nc)
+        self.deepout2 = self.head(b * 2, nc)
+        self.deepout3 = self.head(b, nc)
+        self.precls_conv = self.head(b, nc)
+        init_default_(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor, aux: bool = True):
+        skips, x = self.encode(x)
+        heads = (self.deepout1, self.deepout2, self.deepout3)
+        deep = []
+        for i, x in enumerate(self.decode(x, skips)):
+            if aux and i < 3:
+                deep.append(heads[i](x))
+        logits = self.precls_conv(x)
+        return (logits, deep) if aux else logits
+
+
+class UNet3DEAM(Trunk):
+    """Cascaded learnable class tokens (reference unet3D_with_eam :431-582;
+    ``num_eams=2`` is the truncated unet3D_with_eam_baseline :1370-1504).
+
+    ``class_token`` (num_classes, 4*base), the background row included, is
+    a trainable parameter broadcast over the batch. ``eam84`` runs at the
+    1/8 scale and ``linear84_2_42`` projects its tokens to 2*base; with
+    num_eams >= 2 ``eam42`` runs at the 1/4 scale; with num_eams >= 3
+    ``linear42_2_21`` projects to base and ``eam21`` runs at the 1/2 scale.
+    ``forward(x, aux=True)`` returns (logits, tokens (B, num_classes, width
+    of the last projection or EAM), [attention maps (B, d, h, w,
+    num_classes)]), or the logits alone when not aux (the cascade is then
+    skipped)."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
+                 weight_std: bool = True, base: int = 32, num_eams: int = 3,
+                 conv_impl: str = "kernel", gn_impl: str = "kernel",
+                 generator: torch.Generator | None = None):
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        b, nc = base, num_classes
+        self.num_eams = num_eams
+        self.class_token = nn.Parameter(torch.empty(nc, b * 4))
+        self.eam84 = EAM(b * 4, num_heads=4)
+        self.linear84_2_42 = nn.Linear(b * 4, b * 2)
+        self.cascade = [("eam84", "linear84_2_42")]   # (EAM, projection after it) per scale
+        if num_eams >= 2:
+            self.eam42 = EAM(b * 2, num_heads=4)
+            self.cascade.append(("eam42", None))
+        if num_eams >= 3:
+            self.linear42_2_21 = nn.Linear(b * 2, b)
+            self.eam21 = EAM(b, num_heads=4)
+            self.cascade[1] = ("eam42", "linear42_2_21")
+            self.cascade.append(("eam21", None))
+        self.precls_conv = self.head(b, nc)
+        generator = generator or torch.Generator().manual_seed(0)
+        init_default_(self, generator)
+        with torch.no_grad():
+            self.class_token.normal_(generator=generator)
+
+    def forward(self, x: torch.Tensor, aux: bool = True):
+        skips, x = self.encode(x)
+        cm = self.class_token[None].to(x.dtype)
+        attn_maps = []
+        for i, x in enumerate(self.decode(x, skips)):
+            if not aux or i >= len(self.cascade):
+                continue
+            eam, linear = self.cascade[i]
+            cm, attn = getattr(self, eam)(x.reshape(x.shape[0], -1, x.shape[-1]), cm)
+            attn_maps.append(attn_to_map(attn, x.shape[1:4]))
+            if linear is not None:
+                cm = _linear(getattr(self, linear), cm)
+        logits = self.precls_conv(x)
+        return (logits, cm, attn_maps) if aux else logits
+
+
+class UNet3DDynHead(Trunk):
+    """DoDNet-style task-conditioned dynamic head (reference unet3D
+    :1625-1806).
+
+    The task conditioning is GroupNorm -> ReLU (``gap_gn``, through
+    ``group_norm_relu``) and a global mean over the encoder's bottom,
+    concatenated with the one-hot task id; the ``controller`` (a Linear)
+    maps it to 162 parameters: the weights (64 + 64 + 16, indexed [c_in,
+    c_out]) and the biases (8 + 8 + 2) of two 8 -> 8 and one 8 -> 2
+    per-sample 1x1x1 convs applied to the 8-channel classifier output, as
+    per-sample products (JAX einsums). ``forward(x, task_id)`` returns the
+    2-channel logits."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_tasks: int = 7,
+                 weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        b = base
+        self.num_tasks = num_tasks
+        self.gap_gn = GroupNorm(16, b * 8)
+        self.controller = nn.Linear(b * 8 + num_tasks, 162)
+        self.precls_conv = self.head(b, 8)
+        init_default_(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor, task_id: torch.Tensor) -> torch.Tensor:
+        """x: (B, D, H, W, 1); task_id: (B,) ints below num_tasks."""
+        skips, bottom = self.encode(x)
+        pooled = self.gap_gn.relu(bottom, self.gn_impl).mean(dim=(1, 2, 3))
+        onehot = F.one_hot(task_id.long(), self.num_tasks).to(pooled.dtype)
+        params = _linear(self.controller, torch.cat([pooled, onehot], dim=-1))
+        for xd in self.decode(bottom, skips):
+            pass
+        h = self.precls_conv(xd)                                   # (B, D, H, W, 8)
+        w1 = params[:, 0:64].reshape(-1, 8, 8)
+        w2 = params[:, 64:128].reshape(-1, 8, 8)
+        w3 = params[:, 128:144].reshape(-1, 8, 2)
+        for i, (w, bias) in enumerate(((w1, params[:, 144:152]), (w2, params[:, 152:160]),
+                                       (w3, params[:, 160:162]))):
+            h = torch.einsum("bdhwc,bco->bdhwo", h, w) + bias[:, None, None, None, :]
+            if i < 2:
+                h = torch.relu(h)
+        return h

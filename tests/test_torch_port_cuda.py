@@ -1,8 +1,10 @@
 """The CUDA kernels (conv3x3_gn, conv3x3_train, the gn_relu forward and
 backward on both routes, the GroupNorm fold statistics, the resize3d
 upsample forward and backward) against their plain PyTorch versions on the
-GPU, the model's gradients and feam2 on the card, the train step (bit-equal
-reruns; with and without remat) on the card, and the device data pipeline.
+GPU, the model's gradients and feam2 on the card, the ablation U-Nets on the
+card (kernel vs plain, and their trunks bit-equal to the FEAM's), the train
+step (bit-equal reruns; with and without remat) on the card, and the device
+data pipeline.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it also runs where JAX is not
@@ -596,3 +598,69 @@ def test_two_gloo_ranks_on_one_card(cuda_device):
         assert spawn.states_unequal(got, ref) == []
         assert m["loss"] == float(rm["loss"])
         assert all(launches[k] == single[k] and sum(single[k].values()) > 0 for k in single)
+
+
+def _ablation(name, **kw):
+    from multimodal_pl_tpu_torch import models
+
+    cls, extra = {"baseline": (models.UNet3DBaseline, {}), "deepsup": (models.UNet3DDeepSup, {}),
+                  "eam3": (models.UNet3DEAM, {"num_eams": 3}),
+                  "eam2": (models.UNet3DEAM, {"num_eams": 2}),
+                  "dynhead": (models.UNet3DDynHead, {})}[name]
+    return cls(layers=(1, 1, 1, 1, 1), base=16, **extra, **kw)
+
+
+def _outputs(out):
+    return [out] if isinstance(out, torch.Tensor) else [t for o in out for t in _outputs(o)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["baseline", "deepsup", "eam3", "eam2", "dynhead"])
+def test_ablation_on_the_card_matches_plain(cuda_device, name):
+    """Each ablation U-Net in bf16 on the kernels against the plain model
+    with the same weights: every output (logits, deep maps, the EAM
+    cascade's tokens and attention maps, DynHead's 2-channel logits) within
+    rel L2 3e-2 (chip_smoke phase 3's limit); the stride-1 convs, folds,
+    GroupNorm -> ReLU heads and decoder upsamples go through the kernels."""
+    model = _ablation(name).to(cuda_device).eval()
+    plain = _ablation(name, conv_impl="plain", gn_impl="plain").to(cuda_device).eval()
+    plain.load_state_dict(model.state_dict())
+    g = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn((2, 32, 64, 64, 1), generator=g).to(cuda_device, torch.bfloat16)
+    args = (x, torch.tensor([0, 3], device=cuda_device)) if name == "dynhead" else (x,)
+    with torch.inference_mode():
+        conv3x3.reset_launches()
+        norm.fold_launches.clear()
+        gn_relu.reset_launches()
+        resize.reset_launches()
+        got = _outputs(model(*args))
+        torch.cuda.synchronize()
+        # layers (1, 1, 1, 1, 1): 2 fused convs in layer0 and in each decoder stage
+        assert conv3x3.launch_totals()[conv3x3.FUSED] == 10
+        assert conv3x3.launch_totals()[conv3x3.PROLOGUE_OFF] == 4
+        assert sum(norm.fold_launches.values()) == 10 and sum(resize.launches.values()) == 4
+        assert sum(gn_relu.launches.values()) == {"deepsup": 20, "dynhead": 18}.get(name, 17)
+        want = _outputs(plain(*args))
+    assert len(got) == {"baseline": 1, "deepsup": 4, "eam3": 5, "eam2": 4, "dynhead": 1}[name]
+    for a, b_ in zip(got, want, strict=True):
+        assert a.shape == b_.shape and bool(torch.isfinite(a).all())
+        assert _rel(a, b_) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_ablation_trunks_on_the_card_are_the_feam_bit_for_bit(cuda_device):
+    """On the kernels, with the FEAM's weights, UNet3DBaseline,
+    UNet3DDeepSup(aux=False) and UNet3DEAM(aux=False) give the bits of
+    UNet3DFEAM(aux=False)."""
+    feam = UNet3DFEAM(layers=(1, 1, 1, 1, 1), base=16).to(cuda_device).eval()
+    sd = feam.state_dict()
+    x = torch.randn((2, 32, 64, 64, 1), generator=torch.Generator().manual_seed(11)).to(
+        cuda_device, torch.bfloat16)
+    with torch.inference_mode():
+        want = feam(x, aux=False)
+        for name in ("baseline", "deepsup", "eam3", "eam2"):
+            net = _ablation(name).to(cuda_device).eval()
+            own = net.state_dict()
+            net.load_state_dict({k: sd.get(k, v) for k, v in own.items()})
+            got = net(x) if name == "baseline" else net(x, aux=False)
+            assert torch.equal(got, want), name
