@@ -135,7 +135,34 @@ Phases, each of which raises (non-zero exit) on any failed check:
    on FEAM-shaped f32 outputs of one tile on the card, and on a 32 x 96 x 96
    crop of it, every legacy function on 12-, 6- and 5-class MOTS logits and
    on DynHead's 2-channel logits, card vs CPU: value and gradient with
-   respect to the logits within rel 1e-4.
+   respect to the logits within rel 1e-4;
+14. spatial serving (``--mesh space:N``: each tile's H axis split over the
+   ranks of a group, halo rows exchanged, GroupNorm statistics merged across
+   slabs) with phase 3's weights: mpl-evaluate-torch through ``torchrun
+   --nproc_per_node 1`` with --mesh space:1 (NCCL) writes the label maps of
+   the run without --mesh bit for bit, and the spatial predictor over a
+   one-rank NCCL group gives the plain predictor's label map over phase 4's
+   volume bit for bit (s/vol of both, in turns); two gloo ranks spawned on
+   the card split phase 3's bf16 tile batch (space:2): the ranks' logits
+   bit-equal, within rel L2 3e-2 and label agreement 0.95 of the one-rank
+   kernel forward, and at most 1.05 times as far from an f32 forward as the
+   one-rank kernel forward; the plain f32 route split vs whole within rel L2
+   1e-5; rank 0's calls per tile batch 18 fused + 4 prologue-off conv3x3_gn,
+   35 gn_moments, 18 fold and 17 normalize gn_apply, 4 resize3d, no unsplit
+   gn_relu or fold call, 31 halo exchanges and 35 statistics gathers, with
+   the stream ms of the exchanges, the halo copies and crops and the
+   statistics gathers (CUDA events in the run, host gaps included) and the
+   device ms of those copies (CUDA-graph replays); the planted fault of
+   tools/spatial_fault.py (rank 1's low halo zeroed at layer0.0) fails those
+   criteria; the spatial predictor over phase 4's volume on the two ranks:
+   blended logits within rel L2 3e-2 and argmax agreement 0.95 of the
+   one-rank predictor, ranks bit-equal, 3 tile batches' calls per volume,
+   s/vol (two ranks on one card over gloo: not a scaling figure); then the
+   slab entry points gn_moments_bf16 and gn_apply_bf16 against their plain
+   twins at every slab shape (statistics rel 1e-5, y 1e-2 * max|plain|, the
+   normalize given gn_relu_fwd_bf16's own statistics that kernel's y bit
+   for bit), and conv3x3_gn and resize3d at the halo-extended slab shapes as
+   in phase 2, all timed.
 
 Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
@@ -2061,6 +2088,401 @@ def phase_ablations(dev, results, feam, vol, tables):
     return serving
 
 
+SPACE_N = 2                 # phase 14: ranks that split each tile's H axis
+SPACE_PLAIN_REL = 1e-5      # plain f32 route, H-split vs whole: f32 summation order only
+SPACE_REPLACES = {
+    "moments": "multimodal_pl_tpu/ops/pallas/fused_gn_relu.py:73 (the statistics pallas_call; "
+               "and the statistics of ops/bd.py:439 bd_gn_fold), on an H slab",
+    "apply": "multimodal_pl_tpu/ops/pallas/fused_gn_relu.py:96 (the normalize pallas_call; and "
+             "the rows of ops/bd.py:439 bd_gn_fold), from merged slab statistics"}
+
+
+def phase_gn_split(dev, results, moments_keys, apply_keys, n=SPACE_N):
+    """Phase 14: the slab entry points of csrc/gn_relu.cu against their plain
+    twins at every shape an H-split tile batch launches them. gn_moments_bf16:
+    (mean, M2) within rel FOLD_REL of group_moments_reference. gn_apply_bf16
+    from n slabs' moments (this slab's and n - 1 other slabs' of its shape),
+    against merge_moments_reference and the plain normalize (y within 1e-2 *
+    max|plain|) or fold (rows within rel FOLD_REL); at each normalize shape,
+    given gn_relu_fwd_bf16's own statistics it returns that kernel's y bit
+    for bit. Bounds: moments, one read of x; normalize, one read of x and
+    one write of y; fold, the moments read and the rows written. No library
+    call computes either function (library_ms null). Returns ({moments key:
+    row}, {apply key: row})."""
+    from multimodal_pl_tpu_torch.ops import gn_relu as G
+
+    g = torch.Generator().manual_seed(14)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def slab(c, b, d, h, w):
+        return (torch.randn((b, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+
+    tables = ({}, {})
+    for key in sorted(moments_keys):
+        c, groups, b, d, h, w = key
+        x = slab(c, b, d, h, w)
+        k, p = G.gn_moments(x, groups), G.group_moments_reference(x, groups)
+        err = max(rel(k[:, i], p[:, i]) for i in (0, 1))
+        reps = 5 if x.numel() > 2 ** 26 else 20
+        row = {"c": c, "groups": groups, "b": b, "dhw": [d, h, w], "rel": err,
+               "max_abs_err": (k - p).abs().max().item(),
+               "ms": time_ms(lambda: G.gn_moments(x, groups), reps),
+               "plain_ms": time_ms(lambda: G.group_moments_reference(x, groups), reps),
+               "library_ms": None, **bound(0.0, 2 * x.numel() + 4 * 2 * b * groups)}
+        print(f"  gn_moments B={b} C={c:3d} G={groups:2d} @{d}x{h}x{w}: rel {err:.2e}  kernel "
+              f"{row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms",
+              flush=True)
+        check(err <= FOLD_REL, f"gn_moments kernel disagrees with plain at {row}")
+        tables[0][key] = row
+        results["gn_split"].append(row)
+    for key in sorted(apply_keys):
+        mode, c, groups, b, d, h, w = key
+        fold = mode == "fold"
+        x = slab(c, b, d, h, w)
+        sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        moments = torch.stack([G.gn_moments(x, groups)]
+                              + [G.gn_moments(slab(c, b, d, h, w), groups) for _ in range(n - 1)])
+        count = float(d * h * w * (c // groups))
+
+        def plain():
+            st = G.merge_moments_reference(moments, count)
+            if fold:
+                return G.fold_from_stats_reference(st, sc, bi)
+            return G.group_norm_relu_from_stats_reference(x, st, sc, bi)
+
+        k, p = G.gn_apply(x, moments, sc, bi, groups, fold), plain()
+        if fold:
+            err = max(rel(a, b_) for a, b_ in zip(k, p))
+            abs_err = max((a - b_).abs().max().item() for a, b_ in zip(k, p))
+            ok = err <= FOLD_REL
+            nbytes = 4 * (moments.numel() + 2 * b * c + 2 * c)
+            bits = None
+        else:
+            abs_err = (k.float() - p.float()).abs().max().item()
+            err = abs_err / p.float().abs().max().item()
+            y_own, own = G.gn_relu_forward(x, sc, bi, groups)
+            bits = torch.equal(G.gn_apply(x, own, sc, bi, groups), y_own)
+            ok = err <= 1e-2 and bits
+            nbytes = 4 * x.numel() + 4 * (moments.numel() + 2 * c)
+        reps = 5 if x.numel() > 2 ** 26 else 20
+        row = {"mode": mode, "c": c, "groups": groups, "b": b, "dhw": [d, h, w], "slabs": n,
+               "rel": err, "max_abs_err": abs_err, "own_stats_bit_equal": bits,
+               "ms": time_ms(lambda: G.gn_apply(x, moments, sc, bi, groups, fold), reps),
+               "plain_ms": time_ms(plain, reps), "library_ms": None, **bound(0.0, nbytes)}
+        print(f"  gn_apply {mode:4s} B={b} C={c:3d} G={groups:2d} @{d}x{h}x{w} from {n} slabs: "
+              f"rel {err:.2e}{'' if fold else f', given its own statistics = gn_relu_fwd: {bits}'}"
+              f"  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms", flush=True)
+        check(ok, f"gn_apply kernel disagrees with plain at {row}")
+        tables[1][key] = row
+        results["gn_split"].append(row)
+    torch.cuda.empty_cache()
+    return tables
+
+
+def kernel_entry(name, source, replaces, launches, rows, own=None):
+    """One kernels-line entry from (calls, per-shape row) pairs. ``own``:
+    (calls, bound row) pairs of the work the path keeps where the calls run
+    on halo-extended slabs; the bound is then theirs, and the bound of the
+    launched shapes is ``bound_launched_ms``."""
+    libs = [n * r["library_ms"] for n, r in rows if r["library_ms"] is not None]
+    bounds = sum_bound(rows)
+    if own is not None:
+        bounds = dict(sum_bound(own), bound_launched_ms=bounds["bound_ms"])
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for _, r in rows),
+            "ms": sum(n * r["ms"] for n, r in rows),
+            "plain_ms": sum(n * r["plain_ms"] for n, r in rows),
+            **bounds, "library_ms": sum(libs) if libs else None}
+
+
+def slab_rows(d: int) -> int:
+    """Phase 14: the H rows of one rank's own slab at the level of a tile
+    whose D is ``d`` (D is not split: the level is TILE[0] / d)."""
+    return TILE[1] // SPACE_N // (TILE[0] // d)
+
+
+def spatial_entries(run) -> list:
+    """The kernels-line entries of the H-split serving path (phase 14):
+    rank 0's calls per volume; per-shape times at the slab shapes of one
+    tile batch, summed over its calls. The conv and resize calls run on
+    halo-extended slabs: their bound is that of the slab's own output rows
+    (the work the path keeps), the launched shapes' is bound_launched_ms."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
+    tag = f"spatial serving --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, one card)"
+    tile_calls, vol_calls = run["tile_batch"], run["volume"]
+
+    def conv_own(k):
+        spec, cin, cout, b, d, _, w, res = k
+        return conv_bound(b, d, slab_rows(d), w, cin, cout, spec == conv3x3.FUSED, res)
+
+    def resize_own(k):
+        return resize_bound((*k[:5], slab_rows(k[4]), *k[6:]))
+
+    out = []
+    for spec, label, replaces in ((conv3x3.FUSED, "conv3x3_gn fused GN-ReLU prologue", BDX),
+                                  (conv3x3.PROLOGUE_OFF, "conv3x3_gn prologue off", BK3)):
+        calls = [(n, k) for k, n in tile_calls["conv3x3"].items() if k[0] == spec]
+        out.append(kernel_entry(
+            f"{label}, halo-extended slabs, {tag}", SOURCE, replaces,
+            sum(n for k, n in vol_calls["conv3x3"].items() if k[0] == spec),
+            [(n, run["conv3x3"][k]) for n, k in calls], [(n, conv_own(k)) for n, k in calls]))
+    out.append(kernel_entry(
+        f"resize3d forward (x2 upsample; the skip added as the slab is cropped out), "
+        f"halo-extended slabs, {tag}", RESIZE_SOURCE, RESIZE, sum(vol_calls["resize"].values()),
+        [(n, run["resize"][k]) for k, n in tile_calls["resize"].items()],
+        [(n, resize_own(k)) for k, n in tile_calls["resize"].items()]))
+    for key, label in (("gn_moments", "gn_moments_bf16 (slab statistics)"),
+                       ("gn_apply", "gn_apply_bf16 (normalize and fold rows from merged "
+                                    "statistics)")):
+        out.append(kernel_entry(f"{label}, {tag}", GN_SOURCE,
+                                SPACE_REPLACES[key[3:]], sum(vol_calls[key].values()),
+                                [(n, run[key][k]) for k, n in tile_calls[key].items()]))
+    return out
+
+
+def halo_copy_times(dev, exchanges) -> dict:
+    """Phase 14: device ms (CUDA-graph replays) of the halo copies of one
+    H-split tile batch as rank 0 of 2 made them (``parallel.spatial.exchanges``):
+    each attach (the slab and its neighbour rows joined by ``torch.cat``) and
+    each crop (the slab's rows copied out of a conv's output, or out of an
+    upsample's with the skip added in the same pass), summed over their
+    calls, beside their bytes bound (every element read once and written
+    once; the skip read once)."""
+    out = {"attach_ms": 0.0, "attach_bound_ms": 0.0, "crop_ms": 0.0, "crop_bound_ms": 0.0,
+           "crops_with_skip": 0}
+    for key, n in exchanges.items():
+        if key[0] == "halo":
+            _, edge, lo, hi, shape, dtype = key
+            x = torch.randn(shape, device=dev).to(getattr(torch, dtype))
+            # rank 0 sits at the low global edge: rows below only for zero or repeat edges
+            parts = [x[:, :, :lo if edge else 0], x, x[:, :, :hi]]
+            ms = time_ms(lambda: torch.cat(parts, 2), 10)
+            rows = shape[2] + (lo if edge else 0) + hi
+            tag = "attach"
+        elif key[0] == "crop":
+            _, shape, start, rows, dtype, with_skip = key
+            x = torch.randn(shape, device=dev).to(getattr(torch, dtype))
+            if with_skip:
+                skip = torch.randn_like(x[:, :, :rows])
+                ms = time_ms(lambda: x[:, :, start:start + rows] + skip, 10)
+                out["crops_with_skip"] += n
+                del skip
+            else:
+                ms = time_ms(lambda: x[:, :, start:start + rows].contiguous(), 10)
+            tag = "crop"
+        else:
+            continue
+        moved = (2 + (tag == "crop" and with_skip)) * x.element_size() * x.numel() \
+            * rows / shape[2]
+        out[tag + "_ms"] += n * ms
+        out[tag + "_bound_ms"] += n * moved / PEAK_BYTES * 1e3
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial(dev, results, weights, vol):
+    """Phase 14: spatial serving (each tile's H axis split over ranks,
+    ``--mesh space:N``) at phase 3's width. Returns what the kernels line
+    needs: the per-shape tables of the slab-shaped calls and rank 0's calls
+    per tile batch and per volume."""
+    import functools
+
+    from multimodal_pl_tpu_torch.cli import evaluate
+    from multimodal_pl_tpu_torch.convert import save_npz
+    from multimodal_pl_tpu_torch.data.nifti import read_nifti
+    from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from multimodal_pl_tpu_torch.models import UNet3DFEAM
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.parallel import init_mesh
+    from multimodal_pl_tpu_torch.parallel.spatial import SpatialSlidingWindowPredictor
+    from multimodal_pl_tpu_torch.tools import spawn, spatial_fault
+
+    out = {}
+    t0 = time.perf_counter()
+    # 1. --mesh space:1 under torchrun (one NCCL rank): the label maps of the
+    # run without --mesh, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
+
+        img_dir, atlas_path, _ = make_synthetic_amos(os.path.join(tmp, "data"), n_ct=3,
+                                                     n_mri=1, shape=(96, 96, 80), seed=6)
+        ckpt = os.path.join(tmp, "weights.npz")
+        save_npz(ckpt, weights)
+        common = ["--data_dir", img_dir, "--atlas_path", atlas_path, "--reload_path", ckpt,
+                  "--usage", "train", "--print", "true"]
+        evaluate.main(common + ["--save_path", os.path.join(tmp, "one")])
+        torchrun("multimodal_pl_tpu_torch.cli.evaluate",
+                 common + ["--save_path", os.path.join(tmp, "space1"), "--mesh", "space:1"], tmp)
+        maps = [{f: read_nifti(os.path.join(tmp, d, f)).data
+                 for f in sorted(os.listdir(os.path.join(tmp, d))) if f.endswith("_pred.nii.gz")}
+                for d in ("one", "space1")]
+    same = bool(maps[0]) and sorted(maps[0]) == sorted(maps[1]) and all(
+        np.array_equal(maps[0][f], maps[1][f]) for f in maps[0])
+    print(f"[14] torchrun mpl-evaluate-torch --mesh space:1 (NCCL): {len(maps[1])} label maps, "
+          f"bit-equal to the run without --mesh: {same} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(same, "mpl-evaluate-torch --mesh space:1 label maps differ from the run without --mesh")
+    out["space1_cli_bit_equal"] = same
+
+    # s/vol over the serving volume: the predictor without a mesh and the
+    # spatial one over a one-rank NCCL group (the path of --mesh space:1), in
+    # turns; their label maps bit for bit
+    def feam(**kw):
+        net = UNet3DFEAM(deep_up=True, **kw).to(dev).eval()
+        net.load_state_dict(weights)
+        return net
+
+    single_model = feam()
+    kwargs = dict(window_batch=WINDOW_BATCH, compute_dtype=torch.bfloat16, device=dev,
+                  output="argmax")
+    with init_mesh("space:1", dev) as mesh:
+        check(torch.distributed.get_backend(mesh.space.group) == "nccl",
+              "space:1 group is not NCCL")
+        split_model = feam(space=mesh.space)
+        preds = {"without": SlidingWindowPredictor(lambda t: single_model(t, aux=False), TILE,
+                                                   NC, **kwargs),
+                 "space:1": SpatialSlidingWindowPredictor(lambda t: split_model(t, aux=False),
+                                                          TILE, NC, mesh.space, **kwargs)}
+        labels, secs = {}, {name: [] for name in preds}
+        for name in ("without", "space:1", "space:1", "without"):
+            preds[name](vol)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            labels[name] = preds[name](vol)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t1)
+        bits = torch.equal(labels["without"], labels["space:1"])
+        del split_model, preds
+    print(f"[14] {VOL} volume, argmax, P C C P: without --mesh {secs['without']} s/vol, spatial "
+          f"predictor over a one-rank NCCL group {secs['space:1']} s/vol; label maps bit-equal "
+          f"{bits}", flush=True)
+    check(bits, "space:1 predictor label map differs from the predictor without a mesh")
+    out.update(space1_s_per_vol=secs["space:1"], without_s_per_vol=secs["without"])
+
+    # 2. two gloo ranks on the card, space:2, on phase 3's tile batch and the
+    # serving volume; 3. the planted halo fault, in the same spawn
+    x = torch.randn((WINDOW_BATCH, *TILE, 1), generator=torch.Generator().manual_seed(2)).to(
+        torch.bfloat16)
+    plain_kw = {"deep_up": True, "conv_impl": "plain", "gn_impl": "plain"}
+    with torch.inference_mode():
+        one_rank = single_model(x.to(dev), aux=False).float().cpu()
+        plain_model = feam(conv_impl="plain", gn_impl="plain")
+        f32 = plain_model(x.to(dev).float(), aux=False).float().cpu()
+        one_rank_vol = SlidingWindowPredictor(
+            lambda t: single_model(t, aux=False), TILE, NC, **dict(kwargs, output="logits"))(
+            vol).cpu()
+    del single_model, plain_model
+    torch.cuda.empty_cache()
+    wcpu = {k: v.cpu() for k, v in weights.items()}
+    run_key = (False, "logits", WINDOW_BATCH)
+    fault = functools.partial(spatial_fault.zero_low_halo, rank=1, module="layer0.0")
+    calls = [(spawn.sp_forward, ({"deep_up": True}, wcpu, x, "cuda:0", "UNet3DFEAM", True)),
+             (spawn.sp_forward, (plain_kw, wcpu, x.float(), "cuda:0")),
+             (spawn.sp_forward, ({"deep_up": True}, wcpu, x, "cuda:0", "UNet3DFEAM", False,
+                                 fault)),
+             (spawn.sp_predict, ({"deep_up": True}, wcpu, [vol, vol], TILE, (run_key,),
+                                 "cuda:0", torch.bfloat16))]
+    t1 = time.perf_counter()
+    ranks = spawn.run(spawn.dp_calls, SPACE_N, calls, backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t1
+    (kern, launches, exchanges, spans), (plain, _, _), (faulty, _, _), predicted = ranks[0][:4]
+    for r, rank in enumerate(ranks[1:], 1):
+        check(all(torch.equal(a[0], b[0]) for a, b in zip(ranks[0][:3], rank[:3])),
+              f"rank {r}'s forwards differ from rank 0's")
+    crit = spatial_fault.criteria(kern, one_rank, f32)
+    plain_rel = ((plain - f32).norm() / f32.norm()).item()
+    fault_crit = spatial_fault.criteria(faulty, one_rank, f32)
+    print(f"[14] {SPACE_N} gloo ranks on one card, {WINDOW_BATCH}x{TILE} bf16 tile batch split "
+          f"along H, kernels: logits rel L2 vs the one-rank forward {crit['rel_l2']:.3e}, label "
+          f"agreement {crit['agreement']:.5f}, rel L2 to f32 {crit['f32_ratio']:.4f} x the "
+          f"one-rank forward's; plain f32 route split vs whole rel L2 {plain_rel:.2e}; ranks "
+          f"bit-equal", flush=True)
+    check(crit["rel_ok"] and crit["agree_ok"] and crit["ratio_ok"],
+          f"H-split kernel forward outside the serving limits: {crit}")
+    check(plain_rel <= SPACE_PLAIN_REL, f"plain f32 H-split vs whole rel L2 {plain_rel}")
+    caught = not (fault_crit["rel_ok"] and fault_crit["agree_ok"] and fault_crit["ratio_ok"])
+    print(f"[14] planted fault (rank 1's low halo zeroed at layer0.0, tools/spatial_fault.py): "
+          f"rel L2 {fault_crit['rel_l2']:.3e}, agreement {fault_crit['agreement']:.5f}, rel L2 "
+          f"to f32 {fault_crit['f32_ratio']:.3f} x the one-rank forward's: "
+          f"{'caught' if caught else 'MISSED'}", flush=True)
+    check(caught, f"the planted halo fault passed phase 14's criteria: {fault_crit}")
+    totals = {spec: sum(n for k, n in launches["conv3x3"].items() if k[0] == spec)
+              for spec in conv3x3.SPECS}
+    apply_modes = {m: sum(n for k, n in launches["gn_apply"].items() if k[0] == m)
+                   for m in ("fold", "relu")}
+    counts = {"conv3x3": totals, "gn_moments": sum(launches["gn_moments"].values()),
+              "gn_apply": apply_modes, "resize": sum(launches["resize"].values()),
+              "gn_relu": sum(launches["gn_relu"].values()), "fold": sum(launches["fold"].values()),
+              "halo_exchanges": sum(n for k, n in exchanges.items() if k[0] == "halo"),
+              "stats_gathers": sum(n for k, n in exchanges.items() if k[0] == "stats")}
+    print(f"[14] calls per tile batch on rank 0: {counts}", flush=True)
+    check(counts == {"conv3x3": {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
+                                 conv3x3.TRAIN_DX: 0},
+                     "gn_moments": 35, "gn_apply": {"fold": 18, "relu": 17}, "resize": 4,
+                     "gn_relu": 0, "fold": 0, "halo_exchanges": 31, "stats_gathers": 35},
+          f"H-split calls per tile batch {counts}")
+    print(f"[14] stream ms per tile batch on rank 0 (CUDA events): halo rows gathered "
+          f"{spans['exchange_ms']:.3f} ({spans['exchange_n']}), halo copies in "
+          f"{spans['attach_ms']:.3f} ({spans['attach_n']}), crops out {spans['crop_ms']:.3f} "
+          f"({spans['crop_n']}), GroupNorm moments gathered {spans['stats_ms']:.3f} "
+          f"({spans['stats_n']}); gloo stages CUDA tensors through the host", flush=True)
+    copies = halo_copy_times(dev, exchanges)
+    print(f"[14] halo copies per tile batch, device ms of rank 0's calls (CUDA-graph replays): "
+          f"attach {copies['attach_ms']:.3f} (bytes bound {copies['attach_bound_ms']:.3f}), "
+          f"crop {copies['crop_ms']:.3f} (bound {copies['crop_bound_ms']:.3f}; "
+          f"{copies['crops_with_skip']} of them add the decoder's skip)", flush=True)
+
+    outs, same, vol_launches, vol_secs, vol_spans = predicted
+    got = outs[run_key][0]
+    vol_rel = ((got - one_rank_vol).norm() / one_rank_vol.norm()).item()
+    vol_agree = (got.argmax(-1) == one_rank_vol.argmax(-1)).float().mean().item()
+    same = same and all(r[3][1] for r in ranks[1:]) and torch.equal(outs[run_key][0],
+                                                                    outs[run_key][1])
+    vol_calls, vol_exchanges = vol_launches[run_key]
+    print(f"[14] {SPACE_N} gloo ranks, spatial predictor over {VOL} (12 windows, batches of "
+          f"{WINDOW_BATCH}): blended logits rel L2 vs the one-rank predictor {vol_rel:.3e}, "
+          f"argmax agreement {vol_agree:.5f}, ranks bit-equal {same}; "
+          f"{vol_secs[run_key]:.3f} s/vol (two ranks share one card and gloo stages through the "
+          f"host: not a scaling figure) ({spawn_s:.1f} s for the spawn)", flush=True)
+    vs = vol_spans[run_key]
+    print(f"[14] of rank 0's {vol_secs[run_key]:.3f} s/vol, stream ms per volume (CUDA events, "
+          f"host gaps included): halo rows gathered {vs['exchange_ms']:.1f} ({vs['exchange_n']}), "
+          f"copies in {vs['attach_ms']:.1f}, crops out {vs['crop_ms']:.1f}, GroupNorm moments "
+          f"gathered {vs['stats_ms']:.1f} ({vs['stats_n']}), the blend's all_reduce "
+          f"{vs['merge_ms']:.1f} ({vs['merge_n']})", flush=True)
+    check(same, "the spatial predictor's ranks returned different bits")
+    check(vol_rel <= spatial_fault.REL_LIMIT and vol_agree >= spatial_fault.AGREE_LIMIT,
+          f"spatial predictor vs one-rank: rel L2 {vol_rel}, agreement {vol_agree}")
+    for k in ("conv3x3", "gn_moments", "gn_apply", "resize"):
+        want = {key: 3 * n for key, n in launches[k].items()}
+        check(dict(vol_calls[k]) == want, f"spatial predictor {k} calls per volume "
+              f"{dict(vol_calls[k])} != 3 tile batches' {want}")
+    check(not sum(vol_calls["gn_relu"].values()) and not sum(vol_calls["fold"].values()),
+          "the spatial predictor launched the unsplit GroupNorm kernels")
+    out.update(
+        two_rank=crit, plain_rel=plain_rel, fault=fault_crit, calls_per_tile_batch=counts,
+        span_ms_per_tile_batch=spans, halo_copy_device_ms=copies, predictor_rel=vol_rel,
+        predictor_agreement=vol_agree, two_rank_s_per_vol=vol_secs[run_key],
+        two_rank_span_ms_per_vol=vs, spawn_s=spawn_s)
+
+    # 4. the slab-shaped calls against their plain versions, timed
+    print("[14] the slab-shaped calls of one H-split tile batch, kernel vs plain", flush=True)
+    gn_tables = phase_gn_split(dev, results, set(launches["gn_moments"]),
+                               set(launches["gn_apply"]))
+    conv_table = phase_kernels(dev, results, sorted(
+        {(k[1], k[2], tuple(k[4:7]), k[0] == conv3x3.FUSED, k[7]) for k in launches["conv3x3"]}))
+    resize_table = phase_resize(dev, results, set(launches["resize"]))[0]
+    results["spatial"] = out
+    return {"tile_batch": launches, "volume": vol_calls, "gn_moments": gn_tables[0],
+            "gn_apply": gn_tables[1], "conv3x3": conv_table, "resize": resize_table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -2079,7 +2501,7 @@ def main() -> int:
 
 
 def run_phases(amos_data) -> int:
-    """Phases 1-13; ``amos_data``: a future of phase 10's synthetic cases."""
+    """Phases 1-14; ``amos_data``: a future of phase 10's synthetic cases."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
@@ -2097,7 +2519,8 @@ def run_phases(amos_data) -> int:
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
                "fold": [], "gn_relu": [], "gn_relu_serving": [], "gn_relu_backward": [],
-               "conv3x3_train": [], "resize": [], "gn_relu_ablation": [], "phase_s": {}}
+               "conv3x3_train": [], "resize": [], "gn_relu_ablation": [], "gn_split": [],
+               "phase_s": {}}
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -2337,15 +2760,11 @@ def run_phases(amos_data) -> int:
                                    "resize": resize_serving_table})
     phase_done("ablations")
 
-    def entry(name, source, replaces, launches, rows):
-        """One kernels-line entry from (calls, per-shape row) pairs."""
-        libs = [n * r["library_ms"] for n, r in rows if r["library_ms"] is not None]
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": max(r["max_abs_err"] for _, r in rows),
-                "ms": sum(n * r["ms"] for n, r in rows),
-                "plain_ms": sum(n * r["plain_ms"] for n, r in rows),
-                **sum_bound(rows), "library_ms": sum(libs) if libs else None}
+    # ---- phase 14: spatial serving, each tile's H axis split over ranks ----------
+    spatial_run = phase_spatial(dev, results, model.state_dict(), vol)
+    phase_done("spatial serving")
 
+    entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)
     serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
     kernels = [entry(name, SOURCE, replaces, main_launches[spec],
@@ -2470,6 +2889,7 @@ def run_phases(amos_data) -> int:
                  resize_serving_table)):
             kernels.append(entry(f"{label}, {tag}", src, replaces, sum(per_vol[key].values()),
                                  [(n, table_[k]) for k, n in tile_batch[key].items()]))
+    kernels += spatial_entries(spatial_run)
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

@@ -28,10 +28,19 @@ multimodal_pl_tpu_torch.cli.evaluate --mesh data:N ...`` (NCCL; gloo with
 ``--device cpu``; the predictor is
 :class:`multimodal_pl_tpu_torch.parallel.sharded_infer.ShardedSlidingWindowPredictor`).
 Every rank reads every case and gets the same prediction; rank 0 alone
-writes the CSV, the NIfTI files and the PNGs, and prints. ``--mesh`` with
-``--tta`` raises ValueError: the JAX CLI drops ``--tta`` under ``--mesh``
-without a word, which the port does not copy. A ``space`` axis raises
-NotImplementedError.
+writes the CSV, the NIfTI files and the PNGs, and prints. ``--mesh data:N``
+with ``--tta`` raises ValueError: the JAX CLI drops ``--tta`` under a data
+mesh without a word, which the port does not copy.
+
+``--mesh space:N`` splits each tile's H axis over N processes (``torchrun
+--standalone --nproc_per_node N -m multimodal_pl_tpu_torch.cli.evaluate
+--mesh space:N ...``; the models are built with the rank's SpatialGroup and
+the predictor is
+:class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialSlidingWindowPredictor`,
+with or without ``--tta``). ``--mesh data:M,space:N`` takes M * N processes:
+each run of N consecutive ranks splits the tiles, and each of the M groups
+runs every window, as the JAX CLI replicates over ``data``. N must divide
+the tile's H / 16 (ValueError).
 """
 
 from __future__ import annotations
@@ -103,8 +112,9 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--bd", type=str2bool, default=True,
                    help="accepted, changes nothing: the voxel path is the reference")
     p.add_argument("--mesh", type=str, default="",
-                   help="data-parallel mesh data:N: the windows of each volume spread over "
-                        "N ranks under torchrun, one per GPU (NCCL; gloo on the CPU)")
+                   help="data:N: the windows of each volume spread over N ranks; space:N: each "
+                        "tile's H axis split over N ranks; data:M,space:N: M groups of N; under "
+                        "torchrun, one rank per GPU (NCCL; gloo on the CPU)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
@@ -130,10 +140,11 @@ def _save_qualitative_png(save_path: str, sample, pred: np.ndarray) -> None:
     plt.close(fig)
 
 
-def _load_members(args, device, say=print):
+def _load_members(args, device, say=print, space=None):
     """One model per comma-separated checkpoint path (an empty path: the
-    latest checkpoint in the working directory). Class tokens are not
-    needed: with token_update='post' they feed only the attention maps."""
+    latest checkpoint in the working directory), built with ``space`` (a
+    SpatialGroup or None). Class tokens are not needed: with
+    token_update='post' they feed only the attention maps."""
     from multimodal_pl_tpu_torch.convert import load_feam_state_dict, read_checkpoint
     from multimodal_pl_tpu_torch.models import UNet3DFEAM
     from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint
@@ -144,7 +155,7 @@ def _load_members(args, device, say=print):
         model = UNet3DFEAM(num_classes=args.num_classes, weight_std=args.weight_std,
                            deep_up=args.deep_up, conv_impl=impl[args.pallas_k2],
                            gn_impl=impl[args.fused_gn],
-                           generator=torch.Generator().manual_seed(1234))
+                           generator=torch.Generator().manual_seed(1234), space=space)
         if args.reload_from_checkpoint:
             path = pth or latest_checkpoint(".")
             if path and os.path.exists(path):
@@ -161,17 +172,18 @@ def main(argv=None):
     args = get_arguments().parse_args(argv)
     if not args.mesh:
         return _evaluate(args, resolve_device(args.device), None)
-    if args.tta:
-        raise ValueError("--mesh with --tta: the sharded predictor has no flip TTA (the JAX "
-                         "CLI ignores --tta under --mesh); drop one of them")
-    from multimodal_pl_tpu_torch.parallel.mesh import init_data_parallel
+    from multimodal_pl_tpu_torch.parallel.mesh import init_mesh, parse_mesh
 
-    with init_data_parallel(args.mesh, resolve_device(args.device)) as dp:
+    if args.tta and "space" not in parse_mesh(args.mesh):
+        raise ValueError("--mesh data:N with --tta: the sharded predictor has no flip TTA (the "
+                         "JAX CLI ignores --tta under a data mesh); drop one of them")
+    with init_mesh(args.mesh, resolve_device(args.device)) as dp:
         return _evaluate(args, dp.device, dp)
 
 
 def _evaluate(args, device, dp):
-    """The evaluation on ``device``; dp: this rank's DataParallel, or None."""
+    """The evaluation on ``device``; dp: this rank's DataParallel (with its
+    SpatialGroup under a space axis), or None."""
     from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
     from multimodal_pl_tpu_torch.data.nifti import write_nifti
     from multimodal_pl_tpu_torch.infer.metrics import label_scores, organ_scores_atlas
@@ -181,7 +193,8 @@ def _evaluate(args, device, dp):
     say = print if lead else (lambda *a, **k: None)
     d, h, w = map(int, args.input_size.split(","))
     nfg = args.num_classes - 1
-    members = _load_members(args, device, say)
+    space = dp.space if dp else None
+    members = _load_members(args, device, say, space)
 
     def fwd(tiles):
         # logits only (aux=False): the EAMs and deep heads do not feed them
@@ -193,7 +206,12 @@ def _evaluate(args, device, dp):
     common = dict(window_batch=args.window_batch,
                   compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device,
                   output="logits" if use_atlas else "argmax")
-    if dp:
+    if space is not None:
+        from multimodal_pl_tpu_torch.parallel.spatial import SpatialSlidingWindowPredictor
+
+        predictor = SpatialSlidingWindowPredictor(fwd, (d, h, w), args.num_classes, space,
+                                                  tta=args.tta, **common)
+    elif dp:
         from multimodal_pl_tpu_torch.parallel.sharded_infer import (
             ShardedSlidingWindowPredictor,
         )

@@ -15,7 +15,8 @@ It accepts every flag of the JAX CLI. Differences:
   multimodal_pl_tpu_torch.cli.train --mesh data:N ...`` (NCCL; gloo with
   ``--device cpu``). Each rank's device is ``cuda:LOCAL_RANK`` unless
   ``--device`` names an index. A mesh that is not the world size raises
-  ValueError; a ``space`` axis raises NotImplementedError. Every rank runs
+  ValueError; a ``space`` axis raises NotImplementedError (the spatial train
+  step is the next slice; ``mpl-evaluate-torch`` serves with it). Every rank runs
   the step on its own batches (``--batch_size`` is per rank, as in the JAX
   CLI) and holds the same state; rank 0 alone validates, logs and writes
   checkpoints;
@@ -96,7 +97,8 @@ def get_arguments() -> argparse.ArgumentParser:
                         "backward instead of keeping their activations")
     p.add_argument("--mesh", type=str, default="",
                    help="data-parallel mesh data:N: N ranks under torchrun, one per GPU "
-                        "(NCCL; gloo on the CPU); --batch_size is per rank")
+                        "(NCCL; gloo on the CPU); --batch_size is per rank. A space axis "
+                        "raises: the spatial train step is not ported yet")
     p.add_argument("--model_base", type=int, default=32,
                    help="U-Net stage-width base (reference: 32)")
     p.add_argument("--model_layers", type=str, default="1,2,2,2,2",

@@ -18,7 +18,11 @@
 //       dx = bf16(inv * (gy * s_c - (P + xhat * Q) / count));
 //   - the XLA reduction multimodal_pl_tpu/ops/bd.py:439 bd_gn_fold: the
 //     per-sample rows a, b that fold GroupNorm into the prologue of every
-//     fused conv3x3_gn launch (gn_fold_bf16).
+//     fused conv3x3_gn launch (gn_fold_bf16);
+//   - both of the above on a slab of an H-split sample (spatial
+//     parallelism): the slab's moments (gn_moments_bf16), exchanged between
+//     the ranks by the caller, then the normalize or the fold rows from the
+//     merged statistics (gn_apply_bf16).
 //
 // Statistics (forward and fold): each thread accumulates, for its 8
 // channels over its rows, sums of x - k and (x - k)^2 with k its first value
@@ -806,6 +810,112 @@ gn_fold_rows_kernel(const float* __restrict__ partial, const float* __restrict__
   }
 }
 
+// ---- Slab statistics, and GroupNorm from given statistics ------------------
+//
+// Spatial parallelism splits each sample's voxels (the H axis) over N ranks.
+// Each rank computes its slab's per-(sample, group) moments
+// (gn_moments_bf16), the ranks exchange them, and each rank normalizes or
+// folds its slab from the merged statistics (gn_apply_bf16, which merges the
+// N sets in rank order in its prologue). These are the two pallas_calls of
+// fused_group_norm_relu with a collective between them.
+
+// Slab moments, launch 1 (a kernel of its own name, for the profile).
+__global__ void __launch_bounds__(NT)
+gn_slab_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ partial,
+                     long long S, int C, long long rows_per_block) {
+  stats_block(x, partial, S, C, rows_per_block);
+}
+
+// Slab moments, launch 2, one block of NT_ROWS threads per sample: the
+// blocks' per-channel moments merged as gn_fold_rows_kernel merges them,
+// then the channels of each group (count S each) as group_rows does; writes
+// (mean, M2) per group to moments[b][2][groups].
+__global__ void __launch_bounds__(NT_ROWS)
+gn_slab_moments_kernel(const float* __restrict__ partial, float* __restrict__ moments,
+                       long long S, int C, int nblk, long long rows_per_block, int groups) {
+  __shared__ Moments red[NT_ROWS];
+  __shared__ float tot[2][MAX_C];
+  const int b = blockIdx.x;
+  merge_blocks<NT_ROWS>(partial + (long long)b * nblk * 2 * C, S, C, nblk, rows_per_block, red,
+                        tot[0], tot[1]);
+  const int cpg = C / groups;
+  float* out = moments + (long long)b * 2 * groups;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const Moments m = merge_moments(cpg, [&](int j) {
+      return Moments{float(S), tot[0][g * cpg + j], tot[1][g * cpg + j]};
+    });
+    out[g] = m.mean;
+    out[groups + g] = m.m2;
+  }
+}
+
+// Per-group mean and inv of sample b into st[g], st[MAX_C + g] (shared).
+// nslab > 0: merges the slabs' (mean, M2) sets moments[i][b][2][groups], i <
+// nslab, each of count S * C / groups, in rank order (merge_moments), and
+// forms inv = rsqrt(M2 / count + eps) as group_rows does. nslab == 0:
+// moments[b][2][groups] already holds (mean, inv). Ends synchronized.
+__device__ void slab_group_stats(const float* moments, int nslab, int B, int b, long long S,
+                                 int C, int groups, float eps, float* st) {
+  const float n = float(S * (C / groups));
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    if (nslab == 0) {
+      st[g] = moments[(long long)b * 2 * groups + g];
+      st[MAX_C + g] = moments[(long long)b * 2 * groups + groups + g];
+      continue;
+    }
+    const Moments m = merge_moments(nslab, [&](int i) {
+      const float* p = moments + ((long long)i * B + b) * 2 * groups;
+      return Moments{n, p[g], p[groups + g]};
+    });
+    st[g] = m.mean;
+    st[MAX_C + g] = rsqrtf(__fadd_rn(m.m2 / m.n, eps));
+  }
+  __syncthreads();
+}
+
+// relu(GroupNorm) of rows from the given statistics, grid (norm_nblk, B):
+// the grid route's normalize blocks, rounded as gn_relu_norm_kernel rounds.
+__global__ void __launch_bounds__(NT)
+gn_apply_relu_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ moments,
+                     int nslab, const float* __restrict__ scale, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, long long S, int C, int groups, float eps,
+                     long long norm_rows) {
+  __shared__ float st[2][MAX_C];
+  const int b = blockIdx.y;
+  const int c0 = (threadIdx.x % (C / 8)) * 8;
+  Chan p;
+  load_affine(p, scale, bias, c0);
+  slab_group_stats(moments, nslab, gridDim.y, b, S, C, groups, eps, &st[0][0]);
+  const int cpg = C / groups;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p.mean[j] = st[0][(c0 + j) / cpg];
+    p.inv[j] = st[1][(c0 + j) / cpg];
+  }
+  const long long r0 = (long long)blockIdx.x * norm_rows;
+  norm_relu_rows(x + (long long)b * S * C, out + (long long)b * S * C, r0,
+                 rows_end(r0, norm_rows, S), C, p);
+}
+
+// GroupNorm fold rows from the given statistics, one block per sample:
+// rows[2][B][C] = (a, b), rounded as gn_fold_rows_kernel rounds them.
+__global__ void __launch_bounds__(NT)
+gn_apply_fold_kernel(const float* __restrict__ moments, int nslab,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     float* __restrict__ rows, long long S, int C, int groups, float eps) {
+  __shared__ float st[2][MAX_C];
+  const int b = blockIdx.x;
+  slab_group_stats(moments, nslab, gridDim.x, b, S, C, groups, eps, &st[0][0]);
+  const int cpg = C / groups;
+  const long long row = (long long)b * C;
+  const long long rows_b = (long long)gridDim.x * C;
+  for (int c = threadIdx.x; c < C; c += NT) {
+    const float a = __fmul_rn(st[1][c / cpg], scale[c]);
+    rows[row + c] = a;
+    rows[rows_b + row + c] = __fsub_rn(bias[c], __fmul_rn(st[0][c / cpg], a));
+  }
+}
+
 bool bad_shape(int B, long long S, int C, int groups) {
   return B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 != 0 || groups < 1 ||
          C % groups != 0;
@@ -1033,6 +1143,59 @@ int gn_fold_bf16(const void* x, const void* scale, const void* bias, void* rows,
                                              static_cast<float*>(rows), S, C,
                                              grid / STATS_CLUSTER, stats_rows * STATS_CLUSTER,
                                              groups, eps);
+  return int(cudaGetLastError());
+}
+
+// Per-(sample, group) moments of a contiguous (B, S, C) bf16 slab x into
+// moments (B, 2, groups) f32 = (mean, M2), from one read of x (statistics
+// blocks of stats_rows rows, stats_nblk of them, in clusters of
+// STATS_CLUSTER; workspace f32 B * stats_nblk * 2 * C). Returns a
+// cudaError_t as int: 0 when both launches were accepted.
+int gn_moments_bf16(const void* x, void* moments, void* workspace, int B, long long S, int C,
+                    int groups, long long stats_rows, int stats_nblk, void* stream) {
+  if (bad_shape(B, S, C, groups) || bad_grid(S, stats_rows, stats_nblk))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* partial = static_cast<float*>(workspace);
+  const int grid = stats_blocks(stats_nblk);
+  const int err = launch_cluster(gn_slab_stats_kernel, dim3(grid, B, 1), STATS_CLUSTER, 0, st,
+                                 static_cast<const __nv_bfloat16*>(x), partial, S, C, stats_rows);
+  if (err) return err;
+  gn_slab_moments_kernel<<<B, NT_ROWS, 0, st>>>(partial, static_cast<float*>(moments), S, C,
+                                                grid / STATS_CLUSTER, stats_rows * STATS_CLUSTER,
+                                                groups);
+  return int(cudaGetLastError());
+}
+
+// GroupNorm of a contiguous (B, S, C) bf16 slab from given statistics:
+// with nslab > 0, moments (nslab, B, 2, groups) f32 holds each slab's (mean,
+// M2) of count S * C / groups, merged in rank order; with nslab == 0,
+// moments (B, 2, groups) holds (mean, inv). out (like x, unless null):
+// relu(((x - mean) * inv) * s + t), normalize blocks of norm_rows rows
+// (norm_nblk of them), as gn_relu_fwd_bf16 computes it. rows (2, B, C) f32
+// (unless null): the fold rows (a, b) of gn_fold_bf16. Returns a cudaError_t
+// as int.
+int gn_apply_bf16(const void* x, const void* moments, int nslab, const void* scale,
+                  const void* bias, void* out, void* rows, int B, long long S, int C, int groups,
+                  float eps, long long norm_rows, int norm_nblk, void* stream) {
+  if (bad_shape(B, S, C, groups) || nslab < 0 || (out == nullptr && rows == nullptr))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* mo = static_cast<const float*>(moments);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  if (out != nullptr) {
+    if (x == nullptr || bad_grid(S, norm_rows, norm_nblk)) return int(cudaErrorInvalidValue);
+    gn_apply_relu_kernel<<<dim3(norm_nblk, B), NT, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), mo, nslab, sc, bi,
+        static_cast<__nv_bfloat16*>(out), S, C, groups, eps, norm_rows);
+    const int err = int(cudaGetLastError());
+    if (err) return err;
+  }
+  if (rows != nullptr) {
+    gn_apply_fold_kernel<<<B, NT, 0, st>>>(mo, nslab, sc, bi, static_cast<float*>(rows), S, C,
+                                           groups, eps);
+  }
   return int(cudaGetLastError());
 }
 

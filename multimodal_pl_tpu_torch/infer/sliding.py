@@ -157,13 +157,20 @@ class SlidingWindowPredictor:
             return full.argmax(dim=-1).to(torch.uint8)
         return full / count
 
+    def _merge(self, acc: torch.Tensor) -> None:
+        """Merges the accumulators of the ranks that share the volume's
+        windows, in place (a predictor over one process has none)."""
+
     @torch.inference_mode()
     def _run(self, vol: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
-        full = torch.zeros((*vol.shape[:3], self.num_classes), dtype=torch.float32,
-                           device=vol.device)
-        count = None if self.output == "argmax" else torch.zeros(
-            (*vol.shape[:3], 1), dtype=torch.float32, device=vol.device)
+        nc = self.num_classes
+        logits = self.output == "logits"
+        # full and (for 'logits') count in one tensor: one collective merges both
+        acc = torch.zeros((*vol.shape[:3], nc + logits), dtype=torch.float32,
+                          device=vol.device)
+        full, count = acc[..., :nc], (acc[..., nc:] if logits else None)
         self._accumulate(vol, starts, full, count)
+        self._merge(acc)
         return self._normalize(full, count)
 
     def __call__(self, image) -> torch.Tensor:

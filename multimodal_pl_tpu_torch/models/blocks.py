@@ -25,6 +25,16 @@ Routing of :class:`NoBottleneck` and :class:`GNReLUConv`, by grad mode:
 CUDA kernels on a CUDA tensor (their plain versions on a CPU tensor);
 ``'plain'`` calls the plain versions everywhere. The Cin=1 stem and the 1x1
 heads are library convs, as XLA runs them in the JAX package.
+
+``space`` (a :class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialGroup`
+of more than one rank, or None) splits each sample's H axis over the ranks
+of a group, without autograd: every 3x3x3 conv runs on the slab with its
+neighbours' boundary rows attached and is cropped back to the slab's rows
+(a stride-1 conv attaches one row each side and none at a global edge, where
+its own zero padding is the right one; a stride-2 conv one row below, zero at
+the edge, and pads H by nothing); every GroupNorm takes the whole samples'
+statistics (the slabs' moments gathered and merged). The residual of a
+fused block is the halo-extended input. A group of one rank is no split.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from multimodal_pl_tpu_torch.ops.conv3x3 import (
 )
 from multimodal_pl_tpu_torch.ops.gn_relu import IMPLS as GN_IMPLS
 from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu
-from multimodal_pl_tpu_torch.ops.norm import group_norm, group_norm_fold
+from multimodal_pl_tpu_torch.ops.norm import group_norm, group_norm_fold, split
 
 # stride-1 3x3x3 convs without and with autograd recording
 CONV_IMPLS = {"kernel": conv3x3_gn, "plain": conv3x3_gn_reference}
@@ -64,6 +74,14 @@ def check_gn_impl(gn_impl: str) -> str:
 def recording(x: torch.Tensor, weight: torch.Tensor) -> bool:
     """Autograd records this op: grad mode on and x or the weight needs grad."""
     return torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad)
+
+
+def no_split_gradient(space) -> None:
+    """Raises where autograd would record through an H-split forward."""
+    if split(space):
+        raise NotImplementedError(
+            "the H-split (--mesh space:N) forward has no gradient yet: the spatial train step "
+            "is the next slice (ROADMAP.md queue 1); run the model under torch.no_grad")
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, conv_impl: str) -> torch.Tensor:
@@ -96,11 +114,12 @@ class WSConv3d(nn.Module):
     torch-convention symmetric padding."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, bias: bool = False, weight_std: bool = True):
+                 padding: int = 1, bias: bool = False, weight_std: bool = True, space=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.weight_std = stride, padding, weight_std
+        self.space = space
 
     def kernel_for(self, dtype: torch.dtype) -> torch.Tensor:
         """The kernel as the forward uses it: cast to ``dtype``, then
@@ -110,32 +129,47 @@ class WSConv3d(nn.Module):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return conv3d(x, self.kernel_for(x.dtype), self.stride, self.padding, bias)
+        w = self.kernel_for(x.dtype)
+        if not split(self.space) or w.shape[2] == 1:
+            return conv3d(x, w, self.stride, self.padding, bias)
+        if recording(x, self.weight):
+            no_split_gradient(self.space)
+        if self.stride == 1:
+            ext, lo = self.space.halo_rows(x, 1, 1)
+            return self.space.crop_rows(conv3d(ext, w, 1, self.padding, bias), lo, x.shape[2])
+        if (w.shape[2], self.stride, self.padding) != (3, 2, 1):
+            raise NotImplementedError(f"H-split conv: kernel {w.shape[2]}, stride {self.stride}")
+        ext, _ = self.space.halo_rows(x, 1, 0, "zero")
+        return conv3d(ext, w, 2, (1, 0, 1), bias)
 
 
 class GroupNorm(nn.Module):
     """torch-compatible GroupNorm (eps 1e-5, contiguous channel groups) with
     f32 two-pass statistics."""
 
-    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5):
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, space=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.num_groups, self.eps = num_groups, eps
+        self.num_groups, self.eps, self.space = num_groups, eps, space
 
     def forward(self, x):
+        if split(self.space):
+            raise NotImplementedError("GroupNorm without the ReLU or the fold is not H-split "
+                                      "(ROADMAP.md queue 1)")
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
 
     def fold(self, x, impl: str):
         """(a, b) rows (B, C) f32 with ``self(x) == x * a + b``; impl='kernel'
         computes them with the statistics kernel on a CUDA tensor
         (:func:`~multimodal_pl_tpu_torch.ops.norm.group_norm_fold`)."""
-        return group_norm_fold(x, self.weight, self.bias, self.num_groups, self.eps, impl)
+        return group_norm_fold(x, self.weight, self.bias, self.num_groups, self.eps, impl,
+                               self.space)
 
     def relu(self, x, gn_impl: str):
         """relu(self(x)) through :func:`~multimodal_pl_tpu_torch.ops.gn_relu.group_norm_relu`
         (eps 1e-5, the kernel's)."""
-        return group_norm_relu(x, self.weight, self.bias, self.num_groups, gn_impl)
+        return group_norm_relu(x, self.weight, self.bias, self.num_groups, gn_impl, self.space)
 
 
 class GNReLUConv(nn.Sequential):
@@ -145,11 +179,12 @@ class GNReLUConv(nn.Sequential):
     CUDA tensor, with or without autograd)."""
 
     def __init__(self, cin: int, cout: int, num_groups: int = 16, stride: int = 1,
-                 weight_std: bool = False, bias: bool = True, gn_impl: str = "kernel"):
+                 weight_std: bool = False, bias: bool = True, gn_impl: str = "kernel",
+                 space=None):
         super().__init__(
-            GroupNorm(num_groups, cin), nn.ReLU(),
+            GroupNorm(num_groups, cin, space=space), nn.ReLU(),
             WSConv3d(cin, cout, kernel=1, stride=stride, padding=0, bias=bias,
-                     weight_std=weight_std))
+                     weight_std=weight_std, space=space))
         self.gn_impl = check_gn_impl(gn_impl)
 
     def forward(self, x):
@@ -165,17 +200,18 @@ class NoBottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, group: int = 16,
                  weight_std: bool = True, conv_impl: str = "kernel",
-                 gn_impl: str = "kernel"):
+                 gn_impl: str = "kernel", space=None):
         super().__init__()
-        self.stride = stride
-        self.gn1 = GroupNorm(group, inplanes)
-        self.conv1 = WSConv3d(inplanes, planes, 3, stride, 1, weight_std=weight_std)
-        self.gn2 = GroupNorm(group, planes)
-        self.conv2 = WSConv3d(planes, planes, 3, 1, 1, weight_std=weight_std)
+        self.stride, self.space = stride, space
+        self.gn1 = GroupNorm(group, inplanes, space=space)
+        self.conv1 = WSConv3d(inplanes, planes, 3, stride, 1, weight_std=weight_std, space=space)
+        self.gn2 = GroupNorm(group, planes, space=space)
+        self.conv2 = WSConv3d(planes, planes, 3, 1, 1, weight_std=weight_std, space=space)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = GNReLUConv(inplanes, planes, group, stride,
-                                         weight_std=weight_std, bias=False, gn_impl=gn_impl)
+                                         weight_std=weight_std, bias=False, gn_impl=gn_impl,
+                                         space=space)
         self.conv3x3 = conv3x3_impl(conv_impl)
         self.conv_impl = conv_impl
         self.conv3x3_train = TRAIN_CONV_IMPLS[conv_impl]
@@ -184,18 +220,32 @@ class NoBottleneck(nn.Module):
     def forward(self, x):
         x = x.contiguous()
         if recording(x, self.conv2.weight):
+            no_split_gradient(self.space)
             return self._train_forward(x)
+        h = x.shape[2]
         if self.stride == 1:
             a, b = self.gn1.fold(x, self.conv_impl)
-            out = self.conv3x3(x, self.conv1.kernel_for(x.dtype), a, b)
+            xe, lo = self._halo(x)
+            out = self._crop(self.conv3x3(xe, self.conv1.kernel_for(x.dtype), a, b), lo, h)
             a, b = self.gn2.fold(out, self.conv_impl)
-            res = x if self.downsample is None else None
-            out = self.conv3x3(out, self.conv2.kernel_for(x.dtype), a, b, res=res)
+            res = xe if self.downsample is None else None
+            oe, _ = self._halo(out)
+            out = self._crop(self.conv3x3(oe, self.conv2.kernel_for(x.dtype), a, b, res=res),
+                             lo, h)
             return out if res is not None else out + self.downsample(x)
         out = self.conv1(self.gn1.relu(x, self.gn_impl))
         out = self.gn2.relu(out, self.gn_impl)
-        out = self.conv3x3(out, self.conv2.kernel_for(x.dtype))
+        oe, lo = self._halo(out)
+        out = self._crop(self.conv3x3(oe, self.conv2.kernel_for(x.dtype)), lo, out.shape[2])
         return out + self.downsample(x)
+
+    def _halo(self, x):
+        """x with one neighbour row each side under an H split (none at a
+        global edge), and the rows attached below; else (x, 0)."""
+        return self.space.halo_rows(x, 1, 1) if split(self.space) else (x, 0)
+
+    def _crop(self, y, lo: int, rows: int):
+        return self.space.crop_rows(y, lo, rows) if split(self.space) else y
 
     def _train_forward(self, x):
         """The voxel route of the JAX NoBottleneck (models/blocks.py:183-202)."""
@@ -215,8 +265,8 @@ class ResStage(nn.Sequential):
 
     def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1,
                  group: int = 16, weight_std: bool = True, conv_impl: str = "kernel",
-                 gn_impl: str = "kernel"):
+                 gn_impl: str = "kernel", space=None):
         super().__init__(*[
             NoBottleneck(inplanes if i == 0 else planes, planes,
-                         stride if i == 0 else 1, group, weight_std, conv_impl, gn_impl)
+                         stride if i == 0 else 1, group, weight_std, conv_impl, gn_impl, space)
             for i in range(blocks)])

@@ -43,6 +43,15 @@ heads and the EAMs are not checkpointed.
 stride-1 convs and the trilinear upsamples (the decoder's upsample + skip
 and the attention maps' resize), or their plain versions; ``gn_impl`` the
 GroupNorm -> ReLU kernel or its plain version.
+
+``space`` (a :class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialGroup`)
+splits each tile's H axis over the ranks of a group for serving
+(``models/blocks.py``; the decoder's upsample takes one source row each
+side, the edge row repeated at the global edges). Under a split of more than
+one rank only the logits path runs: ``UNet3DFEAM`` with ``aux=False`` and
+``UNet3DBaseline``; ``aux=True``, the other ablations and autograd raise
+NotImplementedError (the spatial train step and the ablations under
+``space`` are the next slice, ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -61,10 +70,21 @@ from multimodal_pl_tpu_torch.models.blocks import (
     ResStage,
     WSConv3d,
     init_default_,
+    no_split_gradient,
 )
 from multimodal_pl_tpu_torch.models.eam import EAM, _linear, attn_to_map
 from multimodal_pl_tpu_torch.models.tokens import ema_update_tokens
+from multimodal_pl_tpu_torch.ops.norm import split
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest, upsample_trilinear
+
+NEXT_SLICE = "the spatial train step and the ablations under space (ROADMAP.md queue 1)"
+
+
+def unsplit_only(name: str, space) -> None:
+    """Raises NotImplementedError for a part of the model that has no H
+    split yet, under a split of more than one rank."""
+    if split(space):
+        raise NotImplementedError(f"{name} under --mesh space:N is not ported: {NEXT_SLICE}")
 
 
 class Trunk(nn.Module):
@@ -73,16 +93,16 @@ class Trunk(nn.Module):
     every U-Net of the family; the subclasses add their heads."""
 
     def __init__(self, layers: Sequence[int], base: int, weight_std: bool, conv_impl: str,
-                 gn_impl: str, remat: bool = False):
+                 gn_impl: str, remat: bool = False, space=None):
         super().__init__()
         b, ws = base, weight_std
-        self.remat, self.conv_impl, self.gn_impl = remat, conv_impl, gn_impl
+        self.remat, self.conv_impl, self.gn_impl, self.space = remat, conv_impl, gn_impl, space
 
         def stage(cin, cout, blocks, stride):
             return ResStage(cin, cout, blocks, stride, weight_std=ws, conv_impl=conv_impl,
-                            gn_impl=gn_impl)
+                            gn_impl=gn_impl, space=space)
 
-        self.conv1 = WSConv3d(1, b, 3, 1, 1, weight_std=ws)
+        self.conv1 = WSConv3d(1, b, 3, 1, 1, weight_std=ws, space=space)
         self.layer0 = stage(b, b, layers[0], 1)
         self.layer1 = stage(b, b * 2, layers[1], 2)
         self.layer2 = stage(b * 2, b * 4, layers[2], 2)
@@ -95,11 +115,15 @@ class Trunk(nn.Module):
         self.x1_resb = stage(b, b, 1, 1)
 
     def head(self, cin: int, cout: int, **kw) -> GNReLUConv:
-        return GNReLUConv(cin, cout, 16, gn_impl=self.gn_impl, **kw)
+        return GNReLUConv(cin, cout, 16, gn_impl=self.gn_impl, space=self.space, **kw)
 
     def encode(self, x: torch.Tensor):
         """x: (B, D, H, W, 1) -> ((skip0, skip1, skip2, skip3), the fusion
-        head's output at 1/16 scale)."""
+        head's output at 1/16 scale). Under a split, x is this rank's H slab
+        (``parallel.spatial.check_divisible`` holds its size)."""
+        if split(self.space) and torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            no_split_gradient(self.space)
         stage = self._stage
         x = self.conv1(x)
         skip0 = x = stage(self.layer0, x)
@@ -113,8 +137,19 @@ class Trunk(nn.Module):
         and full scale) from the encoder's bottom ``x`` and ``skips``."""
         for skip, resb in zip(reversed(skips),
                               (self.x8_resb, self.x4_resb, self.x2_resb, self.x1_resb)):
-            x = self._stage(resb, upsample_trilinear(x, 2, skip, self.conv_impl))
+            x = self._stage(resb, self._upsample(x, skip))
             yield x
+
+    def _upsample(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """upsample_trilinear(x, 2, skip); under a split on x's slab with one
+        source row each side (the edge row repeated at a global edge, as the
+        half-pixel sampling clamps), upsampled without the skip, which is
+        added to the slab's rows in the pass that crops them out."""
+        if not split(self.space):
+            return upsample_trilinear(x, 2, skip, self.conv_impl)
+        xe, _ = self.space.halo_rows(x, 1, 1, "repeat")
+        return self.space.crop_rows(upsample_trilinear(xe, 2, None, self.conv_impl), 2,
+                                    2 * x.shape[2], add=skip)
 
     def _stage(self, stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """stage(x), checkpointed when ``remat`` is set and autograd records.
@@ -147,10 +182,10 @@ class UNet3DFEAM(Trunk):
                  weight_std: bool = True, use_cm: Sequence[bool] = (True, True, True),
                  deep_up: bool = False, base: int = 32, token_update: str = "post",
                  token_alpha: float = 0.01, conv_impl: str = "kernel", gn_impl: str = "kernel",
-                 remat: bool = False, generator: torch.Generator | None = None):
+                 remat: bool = False, generator: torch.Generator | None = None, space=None):
         if token_update not in ("post", "pre"):
             raise ValueError(f"token_update must be 'post' or 'pre', got {token_update!r}")
-        super().__init__(layers, base, weight_std, conv_impl, gn_impl, remat)
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, remat, space)
         b, nc = base, num_classes
         self.num_classes, self.use_cm, self.deep_up = nc, tuple(use_cm), deep_up
         self.token_update, self.token_alpha = token_update, token_alpha
@@ -170,7 +205,10 @@ class UNet3DFEAM(Trunk):
         only when aux; mask: (B, D, H, W) labels, read only with
         token_update='pre'. Returns (logits, attn_maps, deep_maps, features,
         tokens), or the logits alone when not aux; deep_maps is empty when
-        not deep."""
+        not deep. Under an H split only aux=False runs."""
+        if aux:
+            unsplit_only("UNet3DFEAM(aux=True): the EAM maps, the deep heads and the token "
+                         "updates", self.space)
         full_spatial = tuple(x.shape[1:4])
         skips, x = self.encode(x)
         attn_maps, deep_maps, features = [], [], []
@@ -211,8 +249,8 @@ class UNet3DBaseline(Trunk):
 
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
-                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
-        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None, space=None):
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, space=space)
         self.precls_conv = self.head(base, num_classes)
         init_default_(self, generator or torch.Generator().manual_seed(0))
 
@@ -231,7 +269,8 @@ class UNet3DDeepSup(Trunk):
 
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
-                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None, space=None):
+        unsplit_only("UNet3DDeepSup", space)
         super().__init__(layers, base, weight_std, conv_impl, gn_impl)
         b, nc = base, num_classes
         self.deepout1 = self.head(b * 4, nc)
@@ -268,7 +307,8 @@ class UNet3DEAM(Trunk):
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, base: int = 32, num_eams: int = 3,
                  conv_impl: str = "kernel", gn_impl: str = "kernel",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, space=None):
+        unsplit_only("UNet3DEAM", space)
         super().__init__(layers, base, weight_std, conv_impl, gn_impl)
         b, nc = base, num_classes
         self.num_eams = num_eams
@@ -321,7 +361,8 @@ class UNet3DDynHead(Trunk):
 
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_tasks: int = 7,
                  weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
-                 gn_impl: str = "kernel", generator: torch.Generator | None = None):
+                 gn_impl: str = "kernel", generator: torch.Generator | None = None, space=None):
+        unsplit_only("UNet3DDynHead (its gap_gn pools over the whole tile)", space)
         super().__init__(layers, base, weight_std, conv_impl, gn_impl)
         b = base
         self.num_tasks = num_tasks

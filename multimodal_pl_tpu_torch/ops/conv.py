@@ -25,12 +25,13 @@ def standardize_kernel(w: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return (wf / torch.sqrt(var + eps).view(-1, 1, 1, 1, 1)).to(dtype)
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 1,
+def conv3d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int | tuple = 1,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """(B, D, H, W, Cin) x (Cout, Cin, kd, kh, kw) -> (B, D', H', W', Cout),
-    torch-convention symmetric ``padding``. A 1x1x1 kernel is a matmul over
-    the channel axis (after striding); any other goes to ``F.conv3d`` on the
-    channels-first view, which is already ``channels_last_3d`` (no copy)."""
+    torch-convention symmetric ``padding`` (an int, or one per D, H, W). A
+    1x1x1 kernel is a matmul over the channel axis (after striding); any
+    other goes to ``F.conv3d`` on the channels-first view, which is already
+    ``channels_last_3d`` (no copy)."""
     if w.shape[2:] == (1, 1, 1) and padding == 0:
         if stride != 1:
             x = x[:, ::stride, ::stride, ::stride, :]

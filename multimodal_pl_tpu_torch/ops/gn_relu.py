@@ -25,6 +25,14 @@ in the shared memory of a thread-block cluster, else ``'grid'``, two
 launches. ``launches`` counts forward kernel calls and ``bwd_launches``
 backward kernel calls by (C, groups, B, D, H, W), only where a kernel is
 launched.
+
+With ``space`` (a SpatialGroup of more than one rank: x is this rank's H
+slab of each sample; no gradient), :func:`split_group_norm` runs instead:
+the slab statistics kernel ``gn_moments_bf16`` (:func:`gn_moments`), a
+gather of every slab's moments over the group, and ``gn_apply_bf16``
+(:func:`gn_apply`), which merges them in rank order and normalizes (or
+writes the fold rows) as ``gn_relu_fwd_bf16`` does; each has a plain twin.
+``moments_launches`` and ``apply_launches`` count those calls.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 from multimodal_pl_tpu_torch.ops import _build
-from multimodal_pl_tpu_torch.ops.norm import _group_stats
+from multimodal_pl_tpu_torch.ops.norm import _group_stats, split
 
 EPS = 1e-5
 IMPLS = ("kernel", "plain")
@@ -56,11 +64,15 @@ CLUSTER_BLOCK_VECS = 2048  # 16-byte vectors per cluster block, where the card a
 
 launches: collections.Counter = collections.Counter()
 bwd_launches: collections.Counter = collections.Counter()
+# spatial parallelism: gn_moments_bf16 calls by (C, groups, B, D, H, W) and
+# gn_apply_bf16 calls by (mode, C, groups, B, D, H, W), mode 'relu' or 'fold'
+moments_launches: collections.Counter = collections.Counter()
+apply_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
-    launches.clear()
-    bwd_launches.clear()
+    for counter in (launches, bwd_launches, moments_launches, apply_launches):
+        counter.clear()
 
 
 def _check_groups(x: torch.Tensor, groups: int) -> None:
@@ -123,6 +135,11 @@ def _lib():
     lib.gn_relu_bwd_bf16.argtypes = ([ptr] * 8 + [i32, i64, i32, i32, i32, i64, i32, i64, i32,
                                                   i64, ptr])
     lib.gn_relu_bwd_bf16.restype = i32
+    lib.gn_moments_bf16.argtypes = [ptr] * 3 + [i32, i64, i32, i32, i64, i32, ptr]
+    lib.gn_moments_bf16.restype = i32
+    lib.gn_apply_bf16.argtypes = ([ptr, ptr, i32] + [ptr] * 4
+                                  + [i32, i64, i32, i32, f32, i64, i32, ptr])
+    lib.gn_apply_bf16.restype = i32
     lib.gn_relu_limits.argtypes = [ctypes.POINTER(i32)] * 3
     lib.gn_relu_limits.restype = i32
     lib.gn_relu_error_string.argtypes = [i32]
@@ -277,6 +294,152 @@ def gn_relu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bia
     return dx, dsdt[0], dsdt[1]
 
 
+# ---- spatial parallelism: each sample's H axis split over ranks -----------
+#
+# A rank holds a slab of every sample. GroupNorm statistics are the whole
+# sample's: each rank computes its slab's per-(sample, group) moments, the
+# ranks gather them (``space.gather``, one collective of (N, B, 2, groups)
+# f32), and each rank merges the N sets in rank order by Chan's formula and
+# normalizes or folds its slab from the merged statistics. The slabs hold
+# the same number of voxels (the split is even), so each set has the same
+# count.
+
+
+def group_moments_reference(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain version of :func:`gn_moments`: per (sample, group) the mean and
+    M2 (sum of squared deviations from the mean) in f32, two-pass, as (B, 2,
+    groups)."""
+    _check_groups(x, groups)
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, groups, c // groups)
+    mean = xf.mean(dim=(1, 3))
+    m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([mean, m2], 1)
+
+
+def merge_moments(moments: torch.Tensor, count: float) -> torch.Tensor:
+    """N slabs' (mean, M2) sets (N, B, 2, groups), each of ``count`` values,
+    merged in rank order as the kernel merges them (Chan's formula over all
+    sets at once: the mean as the first set's plus the mean offset of all
+    from it, then M2 = sum(M2_i + count * (mean_i - mean)^2)): (B, 2,
+    groups) (mean, M2) of the N * count values."""
+    means, m2s = moments[:, :, 0], moments[:, :, 1]
+    off = torch.zeros_like(means[0])
+    for m in means:
+        off = off + count * (m - means[0])
+    mean = means[0] + off / (count * moments.shape[0])
+    m2 = torch.zeros_like(mean)
+    for m, q in zip(means, m2s):
+        m2 = m2 + (q + count * (m - mean).square())
+    return torch.stack([mean, m2], 1)
+
+
+def merge_moments_reference(moments: torch.Tensor, count: float,
+                            eps: float = EPS) -> torch.Tensor:
+    """Plain version of the merge in :func:`gn_apply`: :func:`merge_moments`,
+    then (B, 2, groups) (mean, inv = rsqrt(M2 / total + eps))."""
+    mean, m2 = merge_moments(moments, count).unbind(1)
+    return torch.stack([mean, torch.rsqrt(m2 / (count * moments.shape[0]) + eps)], 1)
+
+
+def _per_channel(stats: torch.Tensor, c: int):
+    cpg = c // stats.shape[-1]
+    return (stats[:, i].float().repeat_interleave(cpg, -1) for i in (0, 1))
+
+
+def group_norm_relu_from_stats_reference(x: torch.Tensor, stats: torch.Tensor,
+                                         scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gn_apply`'s normalize from (mean, inv) stats
+    (B, 2, groups): relu(((f32(x) - mean) * inv) * s + t) with s, t the affine
+    cast to x.dtype, cast to x.dtype."""
+    mean_c, inv_c = _per_channel(stats, x.shape[-1])
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    s, t = scale.to(x.dtype).float(), bias.to(x.dtype).float()
+    return torch.relu((x.float() - mean_c.view(bshape)) * inv_c.view(bshape) * s + t).to(x.dtype)
+
+
+def fold_from_stats_reference(stats: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """Plain version of :func:`gn_apply`'s fold from (mean, inv) stats (B, 2,
+    groups): rows a = inv * scale, b = bias - mean * a, (B, C) f32 each."""
+    mean_c, inv_c = _per_channel(stats, scale.shape[0])
+    a = inv_c * scale.float()[None]
+    return a, bias.float()[None] - mean_c * a
+
+
+def gn_moments(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The slab statistics kernel (``gn_moments_bf16``) on a CUDA tensor:
+    per (sample, group) (mean, M2) f32 as (B, 2, groups), from one read of x."""
+    _check_kernel_input("x", x, x)
+    _check_groups(x, groups)
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    rows, nblk = stats_plan(b, s, c, limits(x.device.index).stats_clusters[2])
+    moments = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
+    workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_moments_bf16(x.data_ptr(), moments.data_ptr(), workspace.data_ptr(), b, s,
+                                     c, groups, rows, nblk,
+                                     torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_moments launch")
+    moments_launches[(c, groups, b, *x.shape[1:-1])] += 1
+    return moments
+
+
+def gn_apply(x: torch.Tensor, moments: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             groups: int, fold: bool = False, eps: float = EPS):
+    """GroupNorm of a CUDA slab x from given statistics (``gn_apply_bf16``):
+    ``moments`` (N, B, 2, groups) f32 holds the N slabs' (mean, M2), merged
+    in rank order in the kernel's prologue, or (B, 2, groups) (mean, inv)
+    used as they are. Returns relu(GroupNorm(x)) like x, computed as
+    :func:`gn_relu_forward` computes it, or with ``fold`` the fold rows (a,
+    b), (B, C) f32 each."""
+    _check_kernel_input("x", x, x)
+    _check_groups(x, groups)
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    nslab = moments.shape[0] if moments.ndim == 4 else 0
+    if (tuple(moments.shape[-3:]) != (b, 2, groups) or moments.dtype != torch.float32
+            or not moments.is_contiguous() or moments.device != x.device):
+        raise ValueError(f"gn_apply: moments must be contiguous f32 (N, {b}, 2, {groups}) or "
+                         f"({b}, 2, {groups}) on {x.device}, got {moments.dtype} "
+                         f"{tuple(moments.shape)} on {moments.device}")
+    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    out = rows = None
+    norm_rows = norm_nblk = 0
+    if fold:
+        rows = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    else:
+        out = torch.empty_like(x)
+        norm_rows, norm_nblk = grid_plan(x.numel(), s, c)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_apply_bf16(
+            x.data_ptr(), moments.data_ptr(), nslab, scale.data_ptr(), bias.data_ptr(),
+            None if out is None else out.data_ptr(), None if rows is None else rows.data_ptr(),
+            b, s, c, groups, eps, norm_rows, norm_nblk, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_apply launch")
+    apply_launches[("fold" if fold else "relu", c, groups, b, *x.shape[1:-1])] += 1
+    return (rows[0], rows[1]) if fold else out
+
+
+def split_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                     space, kernel: bool, fold: bool = False, eps: float = EPS):
+    """relu(GroupNorm(x)) (or with ``fold`` the fold rows a, b) of this
+    rank's slab x with the statistics of the whole samples: the slab's
+    moments, gathered over ``space`` (a SpatialGroup), merged in rank order.
+    ``kernel``: gn_moments and gn_apply (CUDA tensors), else their plain
+    versions."""
+    _check_groups(x, groups)
+    if kernel:
+        return gn_apply(x, space.gather(gn_moments(x, groups), "stats"), scale, bias, groups,
+                        fold, eps)
+    count = float(x.numel() // (x.shape[0] * groups))
+    stats = merge_moments_reference(space.gather(group_moments_reference(x, groups), "stats"),
+                                    count, eps)
+    if fold:
+        return fold_from_stats_reference(stats, scale, bias)
+    return group_norm_relu_from_stats_reference(x, stats, scale, bias)
+
+
 def _forward(x, scale, bias, groups, kernel: bool):
     if kernel:
         return gn_relu_forward(x, scale, bias, groups)
@@ -302,16 +465,25 @@ class _GroupNormReLU(torch.autograd.Function):
 
 
 def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
-                    impl: str = "kernel") -> torch.Tensor:
+                    impl: str = "kernel", space=None) -> torch.Tensor:
     """relu(GroupNorm(x)) over an N...C tensor (contiguous channel groups,
     eps 1e-5), differentiable in x, scale and bias. impl='kernel' launches
     the CUDA kernels for a CUDA tensor (bf16, C a multiple of 8) and runs the
-    plain versions for a CPU tensor; impl='plain' runs the plain versions."""
+    plain versions for a CPU tensor; impl='plain' runs the plain versions.
+    ``space``: a SpatialGroup of which x is this rank's H slab
+    (:func:`split_group_norm`; no gradient), or None."""
     if impl not in IMPLS:
         raise ValueError(f"gn_relu impl must be one of {IMPLS}, got {impl!r}")
     _check_groups(x, groups)
     x = x.contiguous()
     kernel = impl == "kernel" and x.device.type != "cpu"
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+    recording = torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias))
+    if split(space):
+        if recording:
+            raise NotImplementedError(
+                "group_norm_relu over an H-split sample has no gradient yet (the spatial "
+                "train step, ROADMAP.md queue 1)")
+        return split_group_norm(x, scale, bias, groups, space, kernel)
+    if recording:
         return _GroupNormReLU.apply(x, scale, bias, groups, kernel)
     return _forward(x, scale, bias, groups, kernel)[0]

@@ -64,17 +64,29 @@ def group_norm_relu(x, scale, bias, num_groups: int, eps: float = 1e-5):
     return torch.relu(group_norm(x, scale, bias, num_groups, eps))
 
 
+def split(space) -> bool:
+    """A SpatialGroup of more than one rank (None or one rank: no split)."""
+    return space is not None and space.world > 1
+
+
 def group_norm_fold(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int, eps: float = 1e-5, impl: str = "plain"):
+                    num_groups: int, eps: float = 1e-5, impl: str = "plain", space=None):
     """GroupNorm statistics and affine folded into per-sample rows:
     ``normalize(x) * scale + bias == x * a + b``, with a, b of shape (B, C)
     f32 (``a = inv * scale``, ``b = bias - mean * a``). These are the
     prologue rows of :func:`multimodal_pl_tpu_torch.ops.conv3x3.conv3x3_gn`.
     impl='kernel' launches the statistics kernel for a CUDA tensor (bf16, C
     a multiple of 8 and at most 2048) and runs the plain version for a CPU
-    tensor; impl='plain' runs the plain version."""
+    tensor; impl='plain' runs the plain version. ``space``: a SpatialGroup
+    of which x is this rank's H slab: the statistics are the whole samples'
+    (:func:`multimodal_pl_tpu_torch.ops.gn_relu.split_group_norm`)."""
     if impl not in FOLD_IMPLS:
         raise ValueError(f"group_norm_fold impl must be one of {FOLD_IMPLS}, got {impl!r}")
+    if split(space):
+        from multimodal_pl_tpu_torch.ops.gn_relu import split_group_norm
+
+        return split_group_norm(x.contiguous(), scale, bias, num_groups, space,
+                                impl == "kernel" and x.device.type != "cpu", fold=True, eps=eps)
     if impl == "kernel" and x.device.type != "cpu":
         if x.device.type != "cuda":
             raise ValueError(f"group_norm_fold: no kernel for device {x.device}")

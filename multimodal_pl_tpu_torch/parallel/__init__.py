@@ -7,9 +7,14 @@ with a ``shard_map``'d step. The port runs one process per GPU under
 ``torchrun`` (NCCL; gloo on the CPU): the data-parallel train step
 (gradients averaged before the non-finite guard, token EMA statistics
 summed), per-rank batches, and sliding-window inference with the windows
-spread over the ranks. The ``space`` axis (``parallel/spatial.py``) is not
-ported.
+spread over the ranks; and for serving, each tile's H axis split over a
+group of ranks (``parallel/spatial.py``, the ``space`` axis).
 """
 
-from multimodal_pl_tpu_torch.parallel.mesh import init_data_parallel, parse_mesh, shard_batch
+from multimodal_pl_tpu_torch.parallel.mesh import (
+    init_data_parallel,
+    init_mesh,
+    parse_mesh,
+    shard_batch,
+)
 from multimodal_pl_tpu_torch.parallel.sharded_step import make_sharded_train_step

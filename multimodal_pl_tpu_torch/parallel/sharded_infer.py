@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -33,8 +32,7 @@ class ShardedSlidingWindowPredictor(SlidingWindowPredictor):
     """``SlidingWindowPredictor`` over the ranks of a process ``group``: each
     rank calls it on the same volume (in the same order, for
     ``predict_iter``) and gets the same result. No flip TTA (the JAX
-    predictor has none). The accumulators (full and, for ``output='logits'``,
-    count) are one tensor, so merging them is one ``all_reduce``."""
+    predictor has none). One ``all_reduce`` merges the accumulators."""
 
     def __init__(self, apply_fn: Callable, tile: Sequence[int], num_classes: int, group,
                  window_batch: int = 2, **kwargs):
@@ -50,13 +48,5 @@ class ShardedSlidingWindowPredictor(SlidingWindowPredictor):
         padded, starts = super()._plan(shape)
         return padded, starts[self.rank::self.world]
 
-    @torch.inference_mode()
-    def _run(self, vol: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
-        nc = self.num_classes
-        logits = self.output == "logits"
-        acc = torch.zeros((*vol.shape[:3], nc + logits), dtype=torch.float32,
-                          device=vol.device)
-        full, count = acc[..., :nc], (acc[..., nc:] if logits else None)
-        self._accumulate(vol, starts, full, count)
+    def _merge(self, acc: torch.Tensor) -> None:
         dist.all_reduce(acc, group=self.group)
-        return self._normalize(full, count)

@@ -16,7 +16,8 @@ tensors; a rank moves what it needs to its device).
 
 The rank functions below: the data-parallel train step on each rank's
 batch (with the kernels' launch counts), the token EMA over a group, the
-Engine's reduction, the sharded predictor, the trainer CLI's ``main``, and
+Engine's reduction, the sharded predictor, the trainer CLI's ``main``, the
+H-split (``space``) forward and predictor, the evaluator CLI's ``main``, and
 a list of such calls in one spawn. :func:`states_unequal` lists the leaves
 in which two train states differ; :func:`reference_step` is
 the in-process reference of the data-parallel step: per-batch gradients
@@ -39,13 +40,15 @@ import torch.distributed as dist
 
 def run(fn, world: int, *args, backend: str = "gloo", timeout: float = 600.0) -> list:
     """``fn(*args)`` on each of ``world`` spawned ranks; their return values.
-    Each rank takes the caller's count of torch CPU threads, so a CPU rank
-    sums as the caller does."""
+    Each rank takes the caller's count of torch CPU threads and its TF32
+    switches (cuDNN and matmul), so a rank sums as the caller does."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.save((fn, args), os.path.join(tmp, "call.pt"))
-        ctx = mp.start_processes(_rank_main, args=(world, tmp, backend, torch.get_num_threads()),
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        ctx = mp.start_processes(_rank_main,
+                                 args=(world, tmp, backend, torch.get_num_threads(), tf32),
                                  nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:
@@ -61,11 +64,12 @@ def run(fn, world: int, *args, backend: str = "gloo", timeout: float = 600.0) ->
                 for r in range(world)]
 
 
-def _rank_main(rank: int, world: int, tmp: str, backend: str, threads: int) -> None:
+def _rank_main(rank: int, world: int, tmp: str, backend: str, threads: int, tf32) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     if backend == "gloo":
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank is on this host
     torch.set_num_threads(threads)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     fn, args = torch.load(os.path.join(tmp, "call.pt"), weights_only=False)
     dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
                             rank=rank, world_size=world)
@@ -87,7 +91,9 @@ def _launch_counts() -> dict:
     return {"conv3x3": Counter(conv3x3.launches), "gn_relu": Counter(gn_relu.launches),
             "gn_relu_backward": Counter(gn_relu.bwd_launches),
             "fold": Counter(norm.fold_launches), "resize": Counter(resize.launches),
-            "resize_backward": Counter(resize.bwd_launches)}
+            "resize_backward": Counter(resize.bwd_launches),
+            "gn_moments": Counter(gn_relu.moments_launches),
+            "gn_apply": Counter(gn_relu.apply_launches)}
 
 
 def _reset_launch_counts() -> None:
@@ -243,6 +249,183 @@ def dp_train(argv):
     from multimodal_pl_tpu_torch.cli import train
 
     return _cpu(train.main(argv))
+
+
+def _spatial_model(name, model_kwargs, weights, device, space):
+    from multimodal_pl_tpu_torch import models
+
+    net = getattr(models, name)(**model_kwargs, space=space)
+    net.load_state_dict(weights)
+    return net.to(device).eval()
+
+
+def _on(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def span_ms(spans) -> dict:
+    """Stream ms summed per tag of a SpatialGroup's (tag, start, end) CUDA
+    events (synchronizes), and the number of spans per tag."""
+    torch.cuda.synchronize()
+    out = Counter()
+    for tag, start, end in spans:
+        out[tag + "_ms"] += start.elapsed_time(end)
+        out[tag + "_n"] += 1
+    return dict(out)
+
+
+def sp_forward(model_kwargs, weights, x, device="cpu", name="UNet3DFEAM", timed=False,
+               prepare=None):
+    """Rank r: the H-split forward of ``name(**model_kwargs)`` built with a
+    SpatialGroup over the default group and holding ``weights``, through
+    ``make_spatial_apply`` on this rank's slab of ``x``
+    (the FEAM with aux=False); ``prepare(model, space)``, if given, first
+    (``tools/spatial_fault.py`` plants its fault so). Returns (the whole
+    output on the CPU, the kernels' launch counts, the exchanges by kind and
+    shape, and with ``timed`` the stream ms of the halo exchanges, copies and
+    statistics gathers (:func:`span_ms`))."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    device = _on(device)
+    space = spatial.SpatialGroup.of(dist.group.WORLD, spans=[] if timed else None)
+    net = _spatial_model(name, model_kwargs, weights, device, space)
+    if prepare is not None:
+        prepare(net, space)
+    fwd = spatial.make_spatial_apply(net, space)
+    xs = spatial.put_spatial(x.to(device), space)
+    kw = {"aux": False} if name == "UNet3DFEAM" else {}
+    fwd(xs, **kw)  # warm-up (the kernels' first launches)
+    if timed:
+        span_ms(space.spans)
+        space.spans.clear()
+    _reset_launch_counts()
+    spatial.reset_exchanges()
+    y = fwd(xs, **kw)
+    out = (y.cpu(), _launch_counts(), Counter(spatial.exchanges))
+    return out + (span_ms(space.spans),) if timed else out
+
+
+def sp_predict(model_kwargs, weights, volumes, tile, runs, device="cpu",
+               compute_dtype=torch.float32, bucket=(32, 64, 64)):
+    """Rank r: ``SpatialSlidingWindowPredictor`` over the default group with
+    a ``UNet3DFEAM(**model_kwargs)`` built with that SpatialGroup and
+    holding ``weights``, through ``predict_iter`` over ``volumes``, once per
+    (tta, output, window batch) of ``runs``. Returns ({run: rank 0's
+    predictions on the CPU}, None on the other ranks), whether every
+    prediction equals rank 0's bit for bit, {run: this rank's kernel launch
+    counts and exchanges of the last volume}, {run: seconds per volume, the
+    predictor's own (host clock; the check against rank 0 and the copy to
+    the CPU left out)} and {run: the stream ms per volume of its halo
+    exchanges, copies, moment gathers and accumulator merges, on a CUDA
+    device (:func:`span_ms`)}."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    device = _on(device)
+    cuda = torch.device(device).type == "cuda"
+    space = spatial.SpatialGroup.of(dist.group.WORLD, spans=[] if cuda else None)
+    net = _spatial_model("UNet3DFEAM", model_kwargs, weights, device, space)
+    outs, same, launches, secs, spans = {}, True, {}, {}, {}
+    for run_key in runs:
+        tta, output, window_batch = run_key
+        pred = spatial.SpatialSlidingWindowPredictor(
+            lambda t: net(t, aux=False), tile, model_kwargs.get("num_classes", 14), space,
+            window_batch=window_batch, tta=tta, output=output, device=device,
+            compute_dtype=compute_dtype, bucket=bucket)
+        outs[run_key] = []
+        _reset_launch_counts()
+        spatial.reset_exchanges()
+        if cuda:
+            space.spans.clear()
+        it, busy = pred.predict_iter(volumes), 0.0
+        while True:
+            t0 = time.perf_counter()
+            out = next(it, None)  # each volume computes in its own step
+            if out is None:
+                break
+            if cuda:
+                torch.cuda.synchronize()
+            busy += time.perf_counter() - t0
+            launches[run_key] = (_launch_counts(), Counter(spatial.exchanges))
+            _reset_launch_counts()
+            spatial.reset_exchanges()
+            lead = out.clone()
+            dist.broadcast(lead, src=0)
+            same = same and torch.equal(lead, out)
+            outs[run_key].append(out.cpu())
+        secs[run_key] = busy / len(volumes)
+        if cuda:
+            spans[run_key] = {k: v / len(volumes) if k.endswith("_ms") else v // len(volumes)
+                              for k, v in span_ms(space.spans).items()}
+    return (outs if dist.get_rank() == 0 else None), same, launches, secs, spans
+
+
+def sp_halo_merge(x, cases, groups: int):
+    """Rank r: ``halo_rows`` of this rank's H slab of ``x`` for each (lo,
+    hi, edge) of ``cases`` (the extended slab and the rows attached below),
+    and ``merge_group_stats`` of the slab's moments in ``groups`` groups."""
+    from multimodal_pl_tpu_torch.ops.gn_relu import group_moments_reference
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    xs = spatial.put_spatial(x, space)
+    halos = [space.halo_rows(xs, lo, hi, edge) for lo, hi, edge in cases]
+    count = float(xs.numel() // (xs.shape[0] * groups))
+    return halos, spatial.merge_group_stats(group_moments_reference(xs, groups), space, count)
+
+
+def sp_sendrecv(shape, device="cpu", reps: int = 10) -> dict:
+    """Rank r: a bf16 tensor of ``shape`` (one boundary row's worth) sent to
+    each neighbour in H order and theirs received, by
+    ``dist.batch_isend_irecv``, beside the ``all_gather`` of every rank's
+    rows that ``SpatialGroup.halo_rows`` makes. Returns {'ok': the received
+    rows are the neighbours', 'error': what the backend raised, or None,
+    'p2p_ms', 'all_gather_ms': host-clock medians of ``reps`` calls, each
+    synchronized}."""
+    device = _on(device)
+    r, n = dist.get_rank(), dist.get_world_size()
+    peers = [p for p in (r - 1, r + 1) if 0 <= p < n]
+    x = torch.full(shape, float(r), device=device, dtype=torch.bfloat16)
+    bufs = [torch.empty_like(x) for _ in peers]
+    gathered = [torch.empty_like(x) for _ in range(n)]
+
+    def p2p():
+        ops = [dist.P2POp(dist.isend, x, p) for p in peers]
+        ops += [dist.P2POp(dist.irecv, b, p) for b, p in zip(bufs, peers)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    out = {"ok": False, "error": None, "p2p_ms": None,
+           "all_gather_ms": median_ms(lambda: dist.all_gather(gathered, x))}
+    try:
+        p2p()
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        out["ok"] = all(torch.equal(b, torch.full_like(b, float(p))) for b, p in zip(bufs, peers))
+        out["p2p_ms"] = median_ms(p2p)
+    except Exception as e:  # noqa: BLE001 - what the backend raises is the answer
+        out["error"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def cli_evaluate(argv):
+    """Rank r: ``multimodal_pl_tpu_torch.cli.evaluate.main(argv)``; the CSV's
+    path."""
+    from multimodal_pl_tpu_torch.cli import evaluate
+
+    return evaluate.main(argv)
 
 
 def dp_calls(calls):

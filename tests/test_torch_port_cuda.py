@@ -664,3 +664,69 @@ def test_ablation_trunks_on_the_card_are_the_feam_bit_for_bit(cuda_device):
             net.load_state_dict({k: sd.get(k, v) for k, v in own.items()})
             got = net(x) if name == "baseline" else net(x, aux=False)
             assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,groups", [((2, 5, 8, 13), 32, 16), ((4, 8, 12, 24), 256, 16),
+                                            ((1, 4, 6, 8), 24, 4), ((4, 16, 48, 96), 32, 16)])
+def test_gn_slab_entry_points_match_plain(cuda_device, shape, c, groups):
+    """The slab statistics kernel (gn_moments_bf16) vs its plain twin:
+    (mean, M2) within rel 1e-5; the normalize and the fold from two slabs'
+    moments (gn_apply_bf16, merged in rank order) vs the plain merge and
+    normalize: y within 1e-2 * max|plain|, rows within rel 1e-5; and given
+    gn_relu_fwd_bf16's own statistics, on each of its routes that the shape
+    takes, the normalize gives that kernel's output bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((*shape, c), generator=g) * 2 + 3).to(cuda_device, torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    bi = (0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    m = gn_relu.gn_moments(x, groups)
+    for k, p in zip(m.unbind(1), gn_relu.group_moments_reference(x, groups).unbind(1)):
+        assert _rel(k, p) <= 1e-5
+    slabs = [t.contiguous() for t in x.chunk(2, dim=2)]
+    moments = torch.stack([gn_relu.gn_moments(s, groups) for s in slabs])
+    count = float(slabs[0].numel() // (shape[0] * groups))
+    stats = gn_relu.merge_moments_reference(moments, count)
+    y = gn_relu.gn_apply(slabs[0], moments, sc, bi, groups)
+    yp = gn_relu.group_norm_relu_from_stats_reference(slabs[0], stats, sc, bi)
+    assert (y.float() - yp.float()).abs().max() <= 1e-2 * yp.float().abs().max()
+    for k, p in zip(gn_relu.gn_apply(slabs[0], moments, sc, bi, groups, fold=True),
+                    gn_relu.fold_from_stats_reference(stats, sc, bi)):
+        assert _rel(k, p) <= 1e-5
+    routes = 0
+    for path in gn_relu.PATHS:
+        try:
+            want, own = gn_relu.gn_relu_forward(x, sc, bi, groups, path=path)
+        except ValueError:  # the shape does not fit one cluster
+            continue
+        routes += 1
+        assert torch.equal(gn_relu.gn_apply(x, own, sc, bi, groups), want), path
+    assert routes >= 1
+
+
+@pytest.mark.cuda
+def test_space_two_gloo_ranks_on_one_card(cuda_device):
+    """Two gloo ranks on cuda:0 split a bf16 tile batch's H axis (kernels):
+    the same bits on both ranks, logits within rel L2 3e-2 of the one-rank
+    kernel forward; every GroupNorm on the slab kernels (27 gn_moments, 10
+    folds and 17 normalizes by gn_apply), none on gn_relu_fwd or the fold
+    kernel, 14 conv3x3_gn and 4 resize3d calls."""
+    from multimodal_pl_tpu_torch.tools import spawn
+
+    kw = {"layers": (1, 1, 1, 1, 1), "base": 16, "deep_up": True}
+    model = UNet3DFEAM(**kw, generator=torch.Generator().manual_seed(3)).eval()
+    x = torch.randn((2, 16, 64, 32, 1), generator=torch.Generator().manual_seed(4)).to(
+        torch.bfloat16)
+    ranks = spawn.run(spawn.sp_forward, 2, kw, model.state_dict(), x, "cuda:0", timeout=300)
+    with torch.inference_mode():
+        want = model.to(cuda_device)(x.to(cuda_device), aux=False).float().cpu()
+    assert torch.equal(ranks[0][0], ranks[1][0])
+    assert _rel(ranks[0][0].float(), want) <= 3e-2
+    for _, launches, _ in ranks:
+        # layers (1, 1, 1, 1, 1): 10 folds (5 stride-1 blocks), 17 GN -> ReLU
+        assert sum(launches["gn_moments"].values()) == 10 + 17
+        modes = {m: sum(n for k, n in launches["gn_apply"].items() if k[0] == m)
+                 for m in ("fold", "relu")}
+        assert modes == {"fold": 10, "relu": 17}
+        assert sum(launches["gn_relu"].values()) == sum(launches["fold"].values()) == 0
+        assert sum(launches["conv3x3"].values()) == 14 and sum(launches["resize"].values()) == 4

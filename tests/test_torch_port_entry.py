@@ -63,6 +63,9 @@ def test_port_imports_no_jax():
             "multimodal_pl_tpu_torch.parallel.mesh",
             "multimodal_pl_tpu_torch.parallel.sharded_step",
             "multimodal_pl_tpu_torch.parallel.sharded_infer",
+            "multimodal_pl_tpu_torch.parallel.spatial",
+            "multimodal_pl_tpu_torch.tools.spatial_fault",
+            "multimodal_pl_tpu_torch.tools.halo_p2p",
             "multimodal_pl_tpu_torch.tools.spawn"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
@@ -97,12 +100,12 @@ def test_evaluate_kernel_flags_choose_the_route(flags, conv_impl, gn_impl):
 
 
 def test_evaluate_mesh_raises():
-    """--mesh data:2 without a group of 2 ranks raises naming the world size;
-    a space axis (not ported) raises naming ROADMAP; --mesh with --tta raises
-    (the JAX CLI drops --tta under --mesh)."""
+    """--mesh data:2 without a group of 2 ranks raises naming the world size,
+    and so does data:2,space:2 (4 ranks); --mesh data:N with --tta raises
+    (the JAX CLI drops --tta under a data mesh)."""
     with pytest.raises(ValueError, match="world size is 1"):
         evaluate.main(["--mesh", "data:2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 4 devices, have 1: the world size is 1"):
         evaluate.main(["--mesh", "data:2,space:2", "--device", "cpu"])
     with pytest.raises(ValueError, match="--tta"):
         evaluate.main(["--mesh", "data:1", "--tta", "true", "--device", "cpu"])
