@@ -147,13 +147,16 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bit-equal, within rel L2 3e-2 and label agreement 0.95 of the one-rank
    kernel forward, and at most 1.05 times as far from an f32 forward as the
    one-rank kernel forward; the plain f32 route split vs whole within rel L2
-   1e-5; rank 0's calls per tile batch 18 fused + 4 prologue-off conv3x3_gn,
+   1e-5; each level's output (layer0-4, fusionConv, x8/x4/x2/x1_resb), the
+   two ranks' slabs against the one-rank forward's rows, within rel L2 0.1;
+   rank 0's calls per tile batch 18 fused + 4 prologue-off conv3x3_gn,
    35 gn_moments, 18 fold and 17 normalize gn_apply, 4 resize3d, no unsplit
    gn_relu or fold call, 31 halo exchanges and 35 statistics gathers, with
    the stream ms of the exchanges, the halo copies and crops and the
    statistics gathers (CUDA events in the run, host gaps included) and the
-   device ms of those copies (CUDA-graph replays); the planted fault of
-   tools/spatial_fault.py (rank 1's low halo zeroed at layer0.0) fails those
+   device ms of those copies (CUDA-graph replays); the planted faults of
+   tools/spatial_fault.py (rank 1's low halo zeroed at layer0.0, and at
+   layer4.1, the 1/16 scale, which the logits' checks miss) each fail those
    criteria; the spatial predictor over phase 4's volume on the two ranks:
    blended logits within rel L2 3e-2 and argmax agreement 0.95 of the
    one-rank predictor, ranks bit-equal, 3 tile batches' calls per volume,
@@ -162,9 +165,29 @@ Phases, each of which raises (non-zero exit) on any failed check:
    twins at every slab shape (statistics rel 1e-5, y 1e-2 * max|plain|, the
    normalize given gn_relu_fwd_bf16's own statistics that kernel's y bit
    for bit), and conv3x3_gn and resize3d at the halo-extended slab shapes as
-   in phase 2, all timed.
+   in phase 2, all timed;
+15. the partial-label campaign (tools/campaign.py on its default fixture,
+   28 synthetic cases at 96 x 96 x 80 made by the worker process): the
+   chunked runner trains epochs 0-3 and 3-6 (64 x 96 x 96, B = 3,
+   --device_data true, validation at epoch 5) through mpl-train-torch's
+   main; chunk 2 resumes chunk 1's checkpoint (the trainer says so, and the
+   run ends at 36 steps), every logged loss is finite, and training launches
+   every training kernel (conv3x3_train forward and dx, the fused and
+   prologue-off conv3x3_gn, gn_relu forward and backward, the fold,
+   resize3d forward and backward); then tools/campaign_eval.py on the final
+   checkpoint by the kernel route (bf16 tiles; every serving kernel
+   launched), the plain route (f32; none launched) and the plain versions on
+   bf16 tiles: 9 held-out cases (3 valid, 6 test), each case's label map of
+   the kernel route agreeing with the plain versions' on bf16 tiles on
+   >= 0.95 of the voxels (phase 8's limit, two routes at one dtype; the
+   agreement of both with the f32 route printed), the tables printed; then
+   every kernel at every shape either path launched against its plain
+   version, timed, as in phases 2 and 6.
 
-Kernel "launches" are calls of a wrapper (a conv3x3_gn call split across
+The kernels line gives per path the calls of a volume or a step (for the
+campaign, of its whole training run and of its kernel-route evaluation)
+and their device time from the per-shape tables. Kernel "launches" are
+calls of a wrapper (a conv3x3_gn call split across
 blocks launches a second, reduction kernel; a fold call launches two; a
 gn_relu call one where a sample fits a thread-block cluster, else two; a
 resize3d call, forward or backward, one).
@@ -2183,6 +2206,29 @@ def phase_gn_split(dev, results, moments_keys, apply_keys, n=SPACE_N):
     return tables
 
 
+def conv_rows(specs, calls, train_table, conv_table):
+    """(calls, per-shape row) of the conv3x3 ``calls`` ({key: n}) whose spec
+    is in ``specs``: a train forward or dx call from ``train_table``
+    (phase_train_conv's), a gradient-free call from ``conv_table``
+    (phase_kernels')."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
+    out = []
+    for key, n in calls.items():
+        if key[0] not in specs:
+            continue
+        if key[0] == conv3x3.TRAIN_FWD:
+            row, pre = train_table[(key[1], key[2], *key[3:7])], "fwd_"
+        elif key[0] == conv3x3.TRAIN_DX:
+            row, pre = train_table[(key[2], key[1], *key[3:7])], "dx_"
+        else:
+            row, pre = conv_table[key], ""
+        out.append((n, {f: row[pre + f] for f in ("ms", "plain_ms", "library_ms", "op_ms",
+                                                   "byte_ms")}
+                    | {"max_abs_err": row[pre + "err" if pre else "max_abs_err"]}))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, own=None):
     """One kernels-line entry from (calls, per-shape row) pairs. ``own``:
     (calls, bound row) pairs of the work the path keeps where the calls run
@@ -2291,8 +2337,6 @@ def phase_spatial(dev, results, weights, vol):
     ``--mesh space:N``) at phase 3's width. Returns what the kernels line
     needs: the per-shape tables of the slab-shaped calls and rank 0's calls
     per tile batch and per volume."""
-    import functools
-
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.data.nifti import read_nifti
@@ -2381,37 +2425,47 @@ def phase_spatial(dev, results, weights, vol):
     torch.cuda.empty_cache()
     wcpu = {k: v.cpu() for k, v in weights.items()}
     run_key = (False, "logits", WINDOW_BATCH)
-    fault = functools.partial(spatial_fault.zero_low_halo, rank=1, module="layer0.0")
+    faults = ("layer0.0", "layer4.1")  # the planted halo faults: full and 1/16 scale
     calls = [(spawn.sp_forward, ({"deep_up": True}, wcpu, x, "cuda:0", "UNet3DFEAM", True)),
              (spawn.sp_forward, (plain_kw, wcpu, x.float(), "cuda:0")),
-             (spawn.sp_forward, ({"deep_up": True}, wcpu, x, "cuda:0", "UNet3DFEAM", False,
-                                 fault)),
              (spawn.sp_predict, ({"deep_up": True}, wcpu, [vol, vol], TILE, (run_key,),
                                  "cuda:0", torch.bfloat16))]
+    calls += [(spatial_fault.level_sums, (wcpu, x, "cuda:0", m and {"rank": 1, "module": m}))
+              for m in (None, *faults)]
     t1 = time.perf_counter()
     ranks = spawn.run(spawn.dp_calls, SPACE_N, calls, backend="gloo", timeout=600)
     spawn_s = time.perf_counter() - t1
-    (kern, launches, exchanges, spans), (plain, _, _), (faulty, _, _), predicted = ranks[0][:4]
+    (kern, launches, exchanges, spans), (plain, _, _), predicted = ranks[0][:3]
     for r, rank in enumerate(ranks[1:], 1):
-        check(all(torch.equal(a[0], b[0]) for a, b in zip(ranks[0][:3], rank[:3])),
+        check(all(torch.equal(ranks[0][i][0], rank[i][0]) for i in (0, 1))
+              and all(torch.equal(ranks[0][i][1], rank[i][1]) for i in range(3, len(calls))),
               f"rank {r}'s forwards differ from rank 0's")
     crit = spatial_fault.criteria(kern, one_rank, f32)
     plain_rel = ((plain - f32).norm() / f32.norm()).item()
-    fault_crit = spatial_fault.criteria(faulty, one_rank, f32)
+    levels = [spatial_fault.readings([rank[3 + i] for rank in ranks], one_rank, f32)
+              for i in range(len(faults) + 1)]
     print(f"[14] {SPACE_N} gloo ranks on one card, {WINDOW_BATCH}x{TILE} bf16 tile batch split "
           f"along H, kernels: logits rel L2 vs the one-rank forward {crit['rel_l2']:.3e}, label "
           f"agreement {crit['agreement']:.5f}, rel L2 to f32 {crit['f32_ratio']:.4f} x the "
           f"one-rank forward's; plain f32 route split vs whole rel L2 {plain_rel:.2e}; ranks "
-          f"bit-equal", flush=True)
+          f"bit-equal; per-level rel L2 of the slabs vs the one-rank forward's rows: "
+          + " ".join(f"{k} {v:.2e}" for k, v in levels[0]["levels"].items()), flush=True)
     check(crit["rel_ok"] and crit["agree_ok"] and crit["ratio_ok"],
           f"H-split kernel forward outside the serving limits: {crit}")
     check(plain_rel <= SPACE_PLAIN_REL, f"plain f32 H-split vs whole rel L2 {plain_rel}")
-    caught = not (fault_crit["rel_ok"] and fault_crit["agree_ok"] and fault_crit["ratio_ok"])
-    print(f"[14] planted fault (rank 1's low halo zeroed at layer0.0, tools/spatial_fault.py): "
-          f"rel L2 {fault_crit['rel_l2']:.3e}, agreement {fault_crit['agreement']:.5f}, rel L2 "
-          f"to f32 {fault_crit['f32_ratio']:.3f} x the one-rank forward's: "
-          f"{'caught' if caught else 'MISSED'}", flush=True)
-    check(caught, f"the planted halo fault passed phase 14's criteria: {fault_crit}")
+    check(levels[0]["levels_ok"],
+          f"H-split level outputs vs the one-rank forward's above {spatial_fault.LEVEL_REL}: "
+          f"{levels[0]}")
+    fault_crit = {}
+    for m, c in zip(faults, levels[1:]):
+        caught = not (c["rel_ok"] and c["agree_ok"] and c["ratio_ok"] and c["levels_ok"])
+        print(f"[14] planted fault (rank 1's low halo zeroed at {m}, tools/spatial_fault.py): "
+              f"rel L2 {c['rel_l2']:.3e}, agreement {c['agreement']:.5f}, rel L2 to f32 "
+              f"{c['f32_ratio']:.3f} x the one-rank forward's; per level "
+              + " ".join(f"{k} {v:.2e}" for k, v in c["levels"].items())
+              + f": {'caught' if caught else 'MISSED'}", flush=True)
+        check(caught, f"the planted halo fault at {m} passed phase 14's criteria: {c}")
+        fault_crit[m] = c
     totals = {spec: sum(n for k, n in launches["conv3x3"].items() if k[0] == spec)
               for spec in conv3x3.SPECS}
     apply_modes = {m: sum(n for k, n in launches["gn_apply"].items() if k[0] == m)
@@ -2442,7 +2496,7 @@ def phase_spatial(dev, results, weights, vol):
     got = outs[run_key][0]
     vol_rel = ((got - one_rank_vol).norm() / one_rank_vol.norm()).item()
     vol_agree = (got.argmax(-1) == one_rank_vol.argmax(-1)).float().mean().item()
-    same = same and all(r[3][1] for r in ranks[1:]) and torch.equal(outs[run_key][0],
+    same = same and all(r[2][1] for r in ranks[1:]) and torch.equal(outs[run_key][0],
                                                                     outs[run_key][1])
     vol_calls, vol_exchanges = vol_launches[run_key]
     print(f"[14] {SPACE_N} gloo ranks, spatial predictor over {VOL} (12 windows, batches of "
@@ -2466,7 +2520,8 @@ def phase_spatial(dev, results, weights, vol):
     check(not sum(vol_calls["gn_relu"].values()) and not sum(vol_calls["fold"].values()),
           "the spatial predictor launched the unsplit GroupNorm kernels")
     out.update(
-        two_rank=crit, plain_rel=plain_rel, fault=fault_crit, calls_per_tile_batch=counts,
+        two_rank=crit, plain_rel=plain_rel, levels=levels[0]["levels"], fault=fault_crit,
+        calls_per_tile_batch=counts,
         span_ms_per_tile_batch=spans, halo_copy_device_ms=copies, predictor_rel=vol_rel,
         predictor_agreement=vol_agree, two_rank_s_per_vol=vol_secs[run_key],
         two_rank_span_ms_per_vol=vs, spawn_s=spawn_s)
@@ -2482,6 +2537,219 @@ def phase_spatial(dev, results, weights, vol):
     return {"tile_batch": launches, "volume": vol_calls, "gn_moments": gn_tables[0],
             "gn_apply": gn_tables[1], "conv3x3": conv_table, "resize": resize_table}
 
+# phase 15: the partial-label campaign (tools/campaign.py, tools/campaign_eval.py)
+CAMPAIGN_EPOCHS, CAMPAIGN_CHUNK = 6, 3   # chunks of epochs 0-3 and 3-6
+CAMPAIGN_TILE = (64, 96, 96)            # the campaign's patch and evaluation tile
+CAMPAIGN_AGREE = 0.95                   # kernel vs plain label maps per case (phase 8's)
+
+
+def make_campaign(root: str) -> str:
+    """Phase 15's fixture, tools/campaign.py's default (28 cases at 96 x 96 x
+    80, seed 7), written without its per-case lines; returns ``root``."""
+    import contextlib
+    import io
+
+    from multimodal_pl_tpu_torch.tools import campaign
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        campaign.generate(root)
+    return root
+
+
+def phase_campaign(dev, results, root):
+    """Phase 15: the campaign through its entry points on the fixture at
+    ``root``: ``run_chunks`` for epochs 0-3 and 3-6 of 6 (64 x 96 x 96, B =
+    3, --device_data true, validation at epoch 5), then ``evaluate`` on the
+    final checkpoint by the kernel route (bf16 tiles), the plain route (f32)
+    and the plain versions on bf16 tiles. Checks: chunk 2 resumed chunk 1's
+    checkpoint (the trainer says it
+    loaded it, and the run ends at 36 steps); every logged loss finite; the
+    validation record at epoch 5; training launched every training kernel
+    (conv3x3_train forward and dx, the fused and prologue-off conv3x3_gn,
+    gn_relu forward and backward, the fold, resize3d forward and backward)
+    and the kernel route every serving kernel, the plain routes none; 9
+    held-out cases (3 valid, 6 test), each label map of the kernel route
+    agreeing on >= 0.95 of its voxels with the plain versions' on bf16
+    tiles (phase 8's limit, between two routes at one dtype; each route's
+    agreement with the plain route in f32 is reported). Returns the calls of
+    both paths and their per-shape tables for the kernels line (the kernels
+    timed at every shape either path launched)."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.tools import campaign, campaign_eval
+    from multimodal_pl_tpu_torch.tools.spawn import _launch_counts, _reset_launch_counts
+
+    snap = os.path.join(root, "snapshots")
+    per_epoch = campaign.steps_per_epoch(root)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        chunks = campaign.run_chunks(root, CAMPAIGN_EPOCHS, CAMPAIGN_CHUNK, snap, val_every=1,
+                                     extra=["--device", str(dev), "--log_every", "1"])
+    train_calls = _launch_counts()
+    train_s = time.perf_counter() - t0
+    first = os.path.join(snap, f"ckpt_{CAMPAIGN_CHUNK * per_epoch}.pt")
+    print(f"[15] tools/campaign.py run_chunks, {CAMPAIGN_EPOCHS} epochs in chunks of "
+          f"{CAMPAIGN_CHUNK} ({per_epoch} steps per epoch at B = 3, {CAMPAIGN_TILE}): "
+          + "; ".join(f"epochs {c['start']}-{c['stop']} resumed from "
+                      f"{c['resumed_from'] and os.path.basename(c['resumed_from'])}, ended at "
+                      f"step {c['step']} ({c['seconds']:.1f} s)" for c in chunks), flush=True)
+    check([(c["start"], c["stop"]) for c in chunks] == [(0, CAMPAIGN_CHUNK),
+                                                        (CAMPAIGN_CHUNK, CAMPAIGN_EPOCHS)],
+          f"campaign chunks {chunks}")
+    check(chunks[0]["resumed_from"] is None and chunks[0]["checkpoint"] == first
+          and chunks[1]["resumed_from"] == first
+          and f"loading from checkpoint: {first}" in log.getvalue()
+          and chunks[1]["step"] == CAMPAIGN_EPOCHS * per_epoch,
+          f"chunk 2 did not resume chunk 1's checkpoint {first}: {chunks}")
+    with open(os.path.join(snap, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "loss" in r]
+    losses = [v for r in steps for k, v in r.items() if "loss" in k]
+    check(len(steps) == CAMPAIGN_EPOCHS * per_epoch and all(np.isfinite(losses)),
+          f"{len(steps)} step records, losses finite: {all(np.isfinite(losses))}")
+    epochs = [r for r in recs if "epoch/epoch_loss" in r]
+    check(len(epochs) == CAMPAIGN_EPOCHS and all(np.isfinite(r["epoch/epoch_loss"])
+                                                 for r in epochs), f"epoch records {epochs}")
+    vals = [r for r in recs if "val/val_dice_ct_mean" in r]
+    check([r["step"] for r in vals] == [CAMPAIGN_EPOCHS - 1]
+          and all(np.isfinite(v) for r in vals for v in r.values() if isinstance(v, float)),
+          f"validation records {vals}")
+    pps = [round(r["epoch/patches_per_sec"], 2) for r in epochs]
+    print(f"[15] {len(steps)} steps, every loss finite; patches/s per epoch {pps}; validation "
+          f"at epoch {vals[0]['step']}: ct_mean {vals[0]['val/val_dice_ct_mean']:.4f}, "
+          f"sup_dice_sum {vals[0]['val/val_dice_sup_sum']:.4f}", flush=True)
+    spec = Counter(k[0] for k in train_calls["conv3x3"].elements())
+    train_counts = {"conv3x3": dict(spec), **{k: sum(train_calls[k].values()) for k in (
+        "gn_relu", "gn_relu_backward", "fold", "resize", "resize_backward")}}
+    print(f"[15] kernel calls in training (validation included): {train_counts}", flush=True)
+    check(all(spec[k] > 0 for k in conv3x3.SPECS) and all(
+        train_counts[k] > 0 for k in ("gn_relu", "gn_relu_backward", "fold", "resize",
+                                      "resize_backward")),
+          f"campaign training left a kernel unlaunched: {train_counts}")
+
+    # the tool's two routes (kernels on bf16 tiles, plain versions in f32),
+    # and the plain versions on bf16 tiles: phase 8's limit holds two routes
+    # at one dtype (bf16 against f32 flips the argmax of a 6-epoch model's
+    # near-tied logits on ~7% of the voxels on the plain route alone)
+    evals, eval_calls = {}, {}
+    for route, plain, bf16 in (("kernels", False, True), ("plain", True, False),
+                               ("plain bf16", True, True)):
+        t1 = time.perf_counter()
+        _reset_launch_counts()
+        evals[route] = campaign_eval.evaluate(root, snap, 0, CAMPAIGN_TILE, plain=plain,
+                                              bf16=bf16, device=dev, keep_maps=True,
+                                              say=log.write)
+        eval_calls[route] = _launch_counts()
+        evals[route]["seconds"] = time.perf_counter() - t1
+    kcalls = eval_calls["kernels"]
+    espec = Counter(k[0] for k in kcalls["conv3x3"].elements())
+    eval_counts = {"conv3x3": dict(espec), **{k: sum(kcalls[k].values())
+                                              for k in ("gn_relu", "fold", "resize")}}
+    check(all(espec[k] > 0 for k in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF))
+          and all(eval_counts[k] > 0 for k in ("gn_relu", "fold", "resize")),
+          f"the kernel route's evaluation left a serving kernel unlaunched: {eval_counts}")
+    for route in ("plain", "plain bf16"):
+        check(not any(sum(c.values()) for c in eval_calls[route].values()),
+              f"the {route} route launched kernels: {eval_calls[route]}")
+    cases = {route: out["cases"] for route, out in evals.items()}
+    check(all([(c["case_id"], c["usage"]) for c in cases["kernels"]]
+              == [(c["case_id"], c["usage"]) for c in cases[r]] for r in cases)
+          and [c["usage"] for c in cases["kernels"]] == ["valid"] * 3 + ["test"] * 6,
+          f"held-out cases {[(c['case_id'], c['usage']) for c in cases['kernels']]}")
+
+    def agreement(a, b):
+        return [float((x["label_map"] == y["label_map"]).mean())
+                for x, y in zip(cases[a], cases[b])]
+
+    agree = agreement("kernels", "plain bf16")
+    agree_f32 = {"kernels": agreement("kernels", "plain"),
+                 "plain bf16": agreement("plain bf16", "plain")}
+    check(all(np.isfinite(c["dice"]).all() and np.isfinite(c["dice_atlas"]).all()
+              for route in cases.values() for c in route), "non-finite dice")
+    for route, out in evals.items():
+        print(f"[15] tools/campaign_eval.py, {route} route, {os.path.basename(out['checkpoint'])},"
+              f" {len(out['cases'])} held-out cases ({out['seconds']:.1f} s): unsupervised "
+              f"argmax {out['unsup_mean']:.4f} ({out['unsup_organs_above']}/13 > 0.3), "
+              f"atlas-blended {out['unsup_mean_atlas']:.4f} ({out['unsup_organs_above_atlas']}"
+              f"/13), CT {np.mean(out['ct_per_organ']):.4f}, MRI "
+              f"{np.mean(out['mri_per_organ']):.4f}", flush=True)
+    print(f"[15] kernel calls in the kernel route's evaluation: {eval_counts}; label maps "
+          f"kernels vs plain on bf16 tiles agree on {min(agree):.5f} of the voxels (worst "
+          f"case, limit {CAMPAIGN_AGREE}); against the plain route in f32, the kernels "
+          f"{min(agree_f32['kernels']):.5f} and the plain versions on bf16 tiles "
+          f"{min(agree_f32['plain bf16']):.5f} (worst cases; the dtype's share)", flush=True)
+    check(min(agree) >= CAMPAIGN_AGREE, f"campaign label maps kernel vs plain agree {agree}")
+
+    # every shape either path launched, kernel vs plain, timed
+    train_table = phase_train_conv(dev, results, {k for k in train_calls["conv3x3"]
+                                                  if k[0] == conv3x3.TRAIN_FWD})
+    nograd = {k for c in (train_calls, kcalls) for k in c["conv3x3"]
+              if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)}
+    conv_table = {}
+    for batch in sorted({k[3] for k in nograd}):
+        conv_table.update(phase_kernels(
+            dev, results, sorted((k[1], k[2], tuple(k[4:7]), k[0] == conv3x3.FUSED, k[7])
+                                 for k in nograd if k[3] == batch), batch=batch, groups=4))
+    gn_table = phase_gn(dev, results, set(train_calls["gn_relu"]) | set(kcalls["gn_relu"]))
+    gn_bwd_table = phase_gn_bwd(dev, results, set(train_calls["gn_relu_backward"]))
+    fold_table = phase_fold(dev, results, set(train_calls["fold"]) | set(kcalls["fold"]))
+    resize_fwd, resize_bwd = phase_resize(dev, results,
+                                          set(train_calls["resize"]) | set(kcalls["resize"]),
+                                          set(train_calls["resize_backward"]))
+    results["campaign"] = {
+        "chunks": chunks, "train_s": train_s, "patches_per_sec": pps, "validation": vals,
+        "train_calls": train_counts, "eval_calls": eval_counts, "label_agreement": agree,
+        "label_agreement_vs_f32": agree_f32,
+        "eval": {route: {k: v for k, v in out.items() if k != "cases"}
+                 for route, out in evals.items()}}
+    return {"train": train_calls, "eval": kcalls, "conv_train": train_table,
+            "conv": conv_table, "gn_relu": gn_table, "gn_relu_backward": gn_bwd_table,
+            "fold": fold_table, "resize": resize_fwd, "resize_backward": resize_bwd}
+
+
+def campaign_entries(run) -> list:
+    """The kernels-line entries of phase 15's two paths: every call of the
+    6-epoch campaign's training (its epoch-5 validation included) and of the
+    kernel route's held-out evaluation, each call's device time from the
+    per-shape tables."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
+    train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
+    out = []
+    for path, tag in (("train", "campaign training, 6 epochs (validation at epoch 5)"),
+                      ("eval", "campaign held-out evaluation, 9 cases, kernel route")):
+        calls = run[path]
+        specs = ((train_specs, K2, "conv3x3_train: conv3x3_gn prologue off (forward, dx; "
+                                   "gradient-free refiner and validation)"),
+                 ((conv3x3.FUSED,), K2_GN, "conv3x3_gn fused GN-ReLU prologue (refiner "
+                                           "gradient-free pass and validation)"))
+        if path == "eval":
+            specs = (((conv3x3.FUSED,), BDX, "conv3x3_gn fused GN-ReLU prologue"),
+                     ((conv3x3.PROLOGUE_OFF,), BK3, "conv3x3_gn prologue off"))
+        for spec_set, replaces, label in specs:
+            out.append(kernel_entry(
+                f"{label}, {tag}", SOURCE, replaces,
+                sum(n for k, n in calls["conv3x3"].items() if k[0] in spec_set),
+                conv_rows(spec_set, calls["conv3x3"], run["conv_train"], run["conv"])))
+        kinds = [("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU),
+                 ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD),
+                 ("resize", "resize3d forward (upsample [+ skip])", RESIZE_SOURCE, RESIZE)]
+        if path == "train":
+            kinds += [("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16)", GN_SOURCE,
+                       GN_BWD),
+                      ("resize_backward", "resize3d backward (gather form)", RESIZE_SOURCE,
+                       RESIZE_BWD)]
+        for key, label, src, replaces in kinds:
+            out.append(kernel_entry(f"{label}, {tag}", src, replaces,
+                                    sum(calls[key].values()),
+                                    [(n, run[key][k]) for k, n in calls[key].items()]))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2490,18 +2758,20 @@ def main() -> int:
         return 1
     from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
 
-    # phase 10's cases at the AMOS grid take a minute of numpy and gzip:
-    # one worker process makes them while phases 1-9 run
+    # phase 10's cases at the AMOS grid take a minute of numpy and gzip, and
+    # phase 15's fixture 15 s: one worker process makes them while phases 1-9 run
     with (tempfile.TemporaryDirectory() as tmp,
           ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as maker):
         amos_data = maker.submit(make_synthetic_amos, os.path.join(tmp, "amos"),
                                  n_ct=AMOS_CASES[0], n_mri=AMOS_CASES[1], shape=AMOS_GRID,
                                  seed=4, spread_ids=False)
-        return run_phases(amos_data)
+        campaign_data = maker.submit(make_campaign, os.path.join(tmp, "campaign"))
+        return run_phases(amos_data, campaign_data)
 
 
-def run_phases(amos_data) -> int:
-    """Phases 1-14; ``amos_data``: a future of phase 10's synthetic cases."""
+def run_phases(amos_data, campaign_data) -> int:
+    """Phases 1-15; ``amos_data``, ``campaign_data``: futures of phase 10's
+    synthetic cases and phase 15's fixture root."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
     from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
@@ -2764,6 +3034,10 @@ def run_phases(amos_data) -> int:
     spatial_run = phase_spatial(dev, results, model.state_dict(), vol)
     phase_done("spatial serving")
 
+    # ---- phase 15: the partial-label campaign, chunked training and evaluation ----
+    campaign_run = phase_campaign(dev, results, campaign_data.result())
+    phase_done("campaign")
+
     entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)
     serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
@@ -2782,20 +3056,7 @@ def run_phases(amos_data) -> int:
 
     # per train step: each call's per-shape row from phase 6
     def step_rows(specs, expected):
-        out = []
-        for key, n in expected.items():
-            if key[0] not in specs:
-                continue
-            if key[0] == conv3x3.TRAIN_FWD:
-                row, pre = train_table[(key[1], key[2], *key[3:7])], "fwd_"
-            elif key[0] == conv3x3.TRAIN_DX:
-                row, pre = train_table[(key[2], key[1], *key[3:7])], "dx_"
-            else:
-                row, pre = nograd_table[key], ""
-            out.append((n, {f: row[pre + f] for f in ("ms", "plain_ms", "library_ms", "op_ms",
-                                                       "byte_ms")}
-                        | {"max_abs_err": row[pre + "err" if pre else "max_abs_err"]}))
-        return out
+        return conv_rows(specs, expected, train_table, nograd_table)
 
     train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
     for tag, run, cfg in (("train step", step_run, StepConfig()),
@@ -2890,6 +3151,7 @@ def run_phases(amos_data) -> int:
             kernels.append(entry(f"{label}, {tag}", src, replaces, sum(per_vol[key].values()),
                                  [(n, table_[k]) for k, n in tile_batch[key].items()]))
     kernels += spatial_entries(spatial_run)
+    kernels += campaign_entries(campaign_run)
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

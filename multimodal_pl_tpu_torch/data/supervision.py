@@ -1,5 +1,6 @@
 """Supervision-mask semantics for partial labeling: the part of
-``multimodal_pl_tpu/data/supervision.py`` that the dataset reads, copied.
+``multimodal_pl_tpu/data/supervision.py`` that the dataset and the fixture
+generators use (the masks, the csv reader and writer), copied.
 
 The reference's mask plumbing is internally inconsistent (generator emits a
 15-slot organ-only row, the trainer indexes it as label-indexed with
@@ -68,6 +69,29 @@ def supervision_mask_for_case(case_id: int) -> np.ndarray:
             mask[label] = 1.0
             break
     return mask
+
+
+def generate_supervision_csv(case_ids, out_path: str,
+                             organ_overrides: Dict[int, int] | None = None) -> None:
+    """supervise_mask.csv writer (atlas_gen_mm.py:59-71, fixed key format):
+    a header, then ``amos_XXXX,bitstring`` rows.
+
+    organ_overrides: optional {case_id: organ_label} replacing the id-range
+    assignment for those CT cases, so that a fixture can supervise every
+    organ in >= 1 train case (the id-range table never supervises labels
+    1-2). MRI cases (id >= 500) stay all-zero regardless."""
+    overrides = organ_overrides or {}
+    with open(out_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["name", "mask"])
+        for cid in case_ids:
+            cid = int(cid)
+            if cid in overrides and cid < 500:
+                mask = np.zeros(NUM_CLASSES, np.float32)
+                mask[int(overrides[cid])] = 1.0
+            else:
+                mask = supervision_mask_for_case(cid)
+            w.writerow([f"amos_{cid:04d}", "".join(str(int(b)) for b in mask)])
 
 
 def load_supervision_csv(path: str) -> Dict[str, np.ndarray]:

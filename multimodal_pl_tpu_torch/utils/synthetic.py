@@ -12,28 +12,17 @@ matching atlas and a supervision csv.
 
 from __future__ import annotations
 
-import csv
 import os
 
 import numpy as np
 from scipy.ndimage import gaussian_filter
 
 from multimodal_pl_tpu_torch.data.nifti import write_nifti
-from multimodal_pl_tpu_torch.data.supervision import supervision_mask_for_case
+from multimodal_pl_tpu_torch.data.supervision import generate_supervision_csv
 
 # CT ids spread across the supervision ranges, so a fixture set supervises
 # different organs, including labeled-modality ones (the refiner's rows)
 _SPREAD_CT_IDS = [40, 80, 130, 170, 240, 290, 360, 430, 455, 475, 30, 120, 230, 350]
-
-
-def write_supervision_csv(case_ids, out_path: str) -> None:
-    """supervise_mask.csv: a header, then ``amos_XXXX,bitstring`` rows."""
-    with open(out_path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["name", "mask"])
-        for cid in case_ids:
-            mask = supervision_mask_for_case(cid)
-            w.writerow([f"amos_{int(cid):04d}", "".join(str(int(b)) for b in mask)])
 
 
 def make_case(rng: np.random.Generator, shape=(96, 96, 80), num_fg: int = 13,
@@ -114,5 +103,5 @@ def make_synthetic_amos(root: str, n_ct: int = 4, n_mri: int = 2, shape=(96, 96,
     atlas_path = os.path.join(root, "atlas_mm.npy")
     np.save(atlas_path, atlas.astype(np.float32))
     csv_path = os.path.join(root, "supervise_mask.csv")
-    write_supervision_csv(ids, csv_path)
+    generate_supervision_csv(ids, csv_path)
     return img_dir, atlas_path, csv_path
