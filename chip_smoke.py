@@ -182,7 +182,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    >= 0.95 of the voxels (phase 8's limit, two routes at one dtype; the
    agreement of both with the f32 route printed), the tables printed; then
    every kernel at every shape either path launched against its plain
-   version, timed, as in phases 2 and 6.
+   version, timed, as in phases 2 and 6;
+16. the spatial train step (parallel/spatial.py make_spatial_train_step:
+   a B = 1 patch's H axis split over ranks through the forward, the losses
+   and the backward) at 64 x 192 x 192, bf16, the StepConfig defaults, from
+   one seeded state and batch: over a one-rank NCCL group (space:1) the new
+   state and metrics of TrainStep bit for bit; in one spawned rank the
+   gradients of the kernel, plain bf16 and plain f32 (TF32 off) steps; on
+   two gloo ranks on the card (space:2) the same gradient passes split:
+   ranks bit-equal, the loss within rel 3e-2 of the one-rank kernel and f32
+   steps, each segmenter and refiner gradient leaf at most 1.4 x as far from
+   the f32 step as the plain bf16 step's plus 1e-2 (phase 7's rule), the
+   plain f32 route split against whole, both against the whole step in
+   float64: the split's median leaf at most 2 x as far from float64 as the
+   whole's (+ 1e-6), every leaf within 0.1 of the whole's (a ReLU whose
+   pre-activation sits within rounding of 0 flips with the order of sums),
+   and a planted fault
+   (tools/spatial_fault.py: no halo row's gradient returned) failing the
+   per-leaf rule; then one kernel step on each rank: its metrics finite,
+   the loss within rel 3e-2 of the one-rank step's, as many gn_bwd_sums_bf16
+   and gn_bwd_dx_bf16 calls as slab GroupNorms, every halo but the stem's
+   returning its gradient, the calls and exchanges per step, each rank's
+   peak GiB and wall ms against one rank's, at 64 x 192 x 192 and at
+   1 x 128^3 (gloo stages through the host: no scaling figure); then
+   gn_bwd_sums_bf16 and gn_bwd_dx_bf16 against their plain twins at every
+   slab shape (sums, ds and dt rel 1e-3; dx 1e-2 * max|plain|), and every
+   other kernel at every slab shape the step launched, timed.
 
 The kernels line gives per path the calls of a volume or a step (for the
 campaign, of its whole training run and of its kernel-route evaluation)
@@ -898,8 +923,8 @@ def phase_train_conv(dev, results, conv_keys):
     return table
 
 
-def train_batch(dev, cfg, batch=1):
-    """A seeded batch of ``batch`` samples at the training patch, as the
+def train_batch(dev, cfg, batch=1, patch=PATCH):
+    """A seeded batch of ``batch`` samples at the training ``patch``, as the
     loop ships it: bf16 image and atlas, uint8 labels; organ 5 is
     supervised and in the labeled modality, so the refiner's gradient pass
     has a row."""
@@ -907,9 +932,9 @@ def train_batch(dev, cfg, batch=1):
     nc = cfg.num_classes
     sup = np.zeros(nc, np.float32)
     sup[5] = 1
-    host = {"image": rng.standard_normal((batch, *PATCH, 1)).astype(np.float32),
-            "label": rng.integers(0, nc, (batch, *PATCH)).astype(np.uint8),
-            "catlas": rng.random((nc - 1, *PATCH)).astype(np.float32), "sup_mask": sup,
+    host = {"image": rng.standard_normal((batch, *patch, 1)).astype(np.float32),
+            "label": rng.integers(0, nc, (batch, *patch)).astype(np.uint8),
+            "catlas": rng.random((nc - 1, *patch)).astype(np.float32), "sup_mask": sup,
             "label_t": np.array([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1], np.float32)}
     from multimodal_pl_tpu_torch.train.loop import to_device
 
@@ -2751,6 +2776,333 @@ def campaign_entries(run) -> list:
     return out
 
 
+# phase 16: the spatial train step (parallel/spatial.py make_spatial_train_step)
+BIG_PATCH = (128, 128, 128)     # BASELINE.json config 5, the 1 x 128^3 step
+# The plain f32 route split against whole, per gradient leaf, both against
+# the whole step in float64: the split moves only the order of sums and the
+# library's conv algorithms (chosen per shape), so its median leaf may sit
+# at most SPLIT_F64_RATIO times as far from float64 as the whole step's
+# (plus 1e-6); every leaf within SPLIT_PLAIN_WORST of the whole step's. Single
+# leaves move by more where a GroupNorm -> ReLU's pre-activation sits within
+# rounding of 0 and its mask flips with the order of sums: in a CPU step at
+# 32 x 64 x 32 one such voxel (pre-activation -2e-7) moved every
+# full-resolution encoder leaf by 3-8e-4, where the whole f32 step sat 1e-6
+# from float64; on the card (TF32 off) the split's median leaf read 2.4e-4
+# from the whole's and its worst 5.1e-3.
+SPLIT_F64_RATIO, SPLIT_PLAIN_WORST = 2.0, 0.1
+GN_BWD_SPLIT = ("multimodal_pl_tpu/ops/norm.py:95 _gn_relu_bwd (XLA; the VJP of row 5): its "
+                "per-(sample, channel) sums of gy and gy * xhat, on an H slab")
+GN_DX_SPLIT = ("multimodal_pl_tpu/ops/norm.py:95 _gn_relu_bwd (XLA; the VJP of row 5): dx from "
+               "the whole sample's sums, and the slab's ds and dt")
+
+
+def phase_gn_bwd_split(dev, results, keys, n=SPACE_N):
+    """Phase 16: the slab backward's entry points of csrc/gn_relu.cu against
+    their plain twins at every slab shape the spatial step launches them,
+    from n slabs' moments (this slab's and n - 1 others'): gn_bwd_sums_bf16's
+    sums and gn_bwd_dx_bf16's ds, dt by relative norm <= GN_BWD_REL, its dx
+    within 1e-2 * max|plain|, the whole sample's sums being this slab's and
+    n - 1 other slabs'. Bounds: sums, one read of x and dy; dx, one read of
+    x and dy and one write of dx. No library call gives the GroupNorm
+    backward from given sums (library_ms null). Returns ({key: sums row},
+    {key: dx row})."""
+    from multimodal_pl_tpu_torch.ops import gn_relu as G
+
+    g = torch.Generator().manual_seed(16)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    def slab(c, b, d, h, w, shift=0.5):
+        return (torch.randn((b, d, h, w, c), generator=g) * 2 + shift).to(dev, torch.bfloat16)
+
+    tables = ({}, {})
+    for key in sorted(keys):
+        c, groups, b, d, h, w = key
+        x, dy = slab(c, b, d, h, w), slab(c, b, d, h, w, 0.0)
+        sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bi = (0.1 * torch.randn(c, generator=g)).to(dev)
+        others = [slab(c, b, d, h, w) for _ in range(n - 1)]
+        moments = torch.stack([G.gn_moments(t, groups) for t in [x] + others])
+        count = d * h * w * (c // groups)
+        stats_p = G.merge_moments_reference(moments, float(count))
+        stats, sums = G.gn_bwd_sums(x, dy, moments, sc, bi, groups)
+        sums_p = G.gn_bwd_sums_reference(x, dy, sc, bi, stats_p)
+        rest = [G.gn_bwd_sums(t, slab(c, b, d, h, w, 0.0), moments, sc, bi, groups)[1]
+                for t in others]
+        total = sums + sum(rest) if rest else sums
+        total_p = sums_p + sum(rest) if rest else sums_p
+        dx, ds, dt = G.gn_bwd_dx(x, dy, stats, sc, bi, sums, total, groups, n * count)
+        pdx, pds, pdt = G.gn_bwd_dx_reference(x, dy, sc, bi, stats_p, sums_p, total_p, n * count)
+        torch.cuda.synchronize()
+        sums_rel = rel(sums, sums_p)
+        dx_err, dx_max = (dx.float() - pdx.float()).abs().max().item(), pdx.float().abs().max().item()
+        dsdt_rel = max(rel(ds, pds), rel(dt, pdt))
+        reps = 5 if x.numel() > 2 ** 26 else 20
+        common = {"c": c, "groups": groups, "b": b, "dhw": [d, h, w], "slabs": n,
+                  "library_ms": None}
+        rows = (
+            dict(common, kernel="gn_bwd_sums_bf16", rel=sums_rel,
+                 max_abs_err=(sums - sums_p).abs().max().item(),
+                 ms=time_ms(lambda: G.gn_bwd_sums(x, dy, moments, sc, bi, groups), reps),
+                 plain_ms=time_ms(lambda: G.gn_bwd_sums_reference(x, dy, sc, bi, stats_p), reps),
+                 **bound(0.0, 4 * x.numel() + 4 * (moments.numel() + 2 * c + 2 * b * c))),
+            dict(common, kernel="gn_bwd_dx_bf16", dsdt_rel=dsdt_rel, max_abs_err=dx_err,
+                 max_abs_plain=dx_max,
+                 ms=time_ms(lambda: G.gn_bwd_dx(x, dy, stats, sc, bi, sums, total, groups,
+                                                n * count), reps),
+                 plain_ms=time_ms(lambda: G.gn_bwd_dx_reference(
+                     x, dy, sc, bi, stats_p, sums_p, total_p, n * count), reps),
+                 **bound(0.0, 6 * x.numel() + 4 * (2 * b * groups + 4 * b * c + 4 * c))))
+        print(f"  gn_bwd_sums/dx B={b} C={c:3d} G={groups:2d} @{d}x{h}x{w} from {n} slabs: sums "
+              f"rel {sums_rel:.2e}, dx {dx_err:.3g} (max|p| {dx_max:.3g}), ds/dt rel "
+              f"{dsdt_rel:.2e}  kernels {rows[0]['ms']:.3f} + {rows[1]['ms']:.3f} ms  plain "
+              f"{rows[0]['plain_ms']:.3f} + {rows[1]['plain_ms']:.3f} ms  bound "
+              f"{rows[0]['bound_ms']:.3f} + {rows[1]['bound_ms']:.3f} ms", flush=True)
+        check(sums_rel <= GN_BWD_REL and dsdt_rel <= GN_BWD_REL and dx_err <= 1e-2 * dx_max,
+              f"gn_bwd_sums / gn_bwd_dx kernels disagree with plain at {rows}")
+        tables[0][key], tables[1][key] = rows
+        results["gn_split"] += list(rows)
+        del x, dy, dx, pdx, others
+    torch.cuda.empty_cache()
+    return tables
+
+
+def grad_leaf_check(got, f32, plain):
+    """Per leaf of the segmenter's and the refiner's gradients: got's
+    relative distance from the f32 step against the plain bf16 step's
+    (phase 7's rule: <= LEAF_RATIO x plain + LEAF_FLOOR). Returns (passes,
+    the worst leaf, its two distances, the median ratio)."""
+    kf = {k: rel_tree(got, f32, [k]) for k in f32}
+    pf = {k: rel_tree(plain, f32, [k]) for k in f32}
+    worst = max(kf, key=lambda k: kf[k] - LEAF_RATIO * pf[k])
+    ratio = [kf[k] / max(pf[k], 1e-30) for k in kf]
+    return (kf[worst] <= LEAF_RATIO * pf[worst] + LEAF_FLOOR, worst, kf[worst], pf[worst],
+            float(np.median(ratio)))
+
+
+def phase_spatial_step(dev, results, tables):
+    """Phase 16: the spatial train step at the full geometry (B = 1, 64 x 192
+    x 192, bf16, kernels, the StepConfig defaults) from one seeded state and
+    batch. ``tables``: phase 6's per-shape tables (the refiner runs on the
+    gathered sample at the unsplit step's shapes). Returns the kernels-line
+    entries of the path (rank 0 of 2, one step)."""
+    import dataclasses
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.parallel import init_mesh
+    from multimodal_pl_tpu_torch.parallel.spatial import make_spatial_train_step, spatial_batch
+    from multimodal_pl_tpu_torch.tools import spawn, spatial_fault
+    from multimodal_pl_tpu_torch.train.state import StepConfig, build_models, create_train_state
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    out = {}
+    cfg = StepConfig(compute_dtype=torch.bfloat16)
+    plain = dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain")
+    plain32 = dataclasses.replace(plain, compute_dtype=torch.float32)
+    state = create_train_state(torch.Generator().manual_seed(0), cfg)
+    batch = train_batch(dev, cfg)
+    host = {k: v.cpu() for k, v in batch.items()}
+    big = {k: v.cpu() for k, v in train_batch(dev, cfg, patch=BIG_PATCH).items()}
+    lr, wf = 5e-4, 0.05
+    lr_t, wf_t = torch.tensor(lr, device=dev), torch.tensor(wf, device=dev)
+    sd = state.to(dev)
+
+    # 1. space:1 over a one-rank NCCL group: TrainStep's state and metrics, bit for bit
+    t0 = time.perf_counter()
+    one_state, one_m = make_train_step(*(m.to(dev) for m in build_models(cfg)), cfg)(
+        sd, batch, lr_t, wf_t)
+    with init_mesh("space:1", dev) as mesh:
+        check(torch.distributed.get_backend(mesh.space.group) == "nccl",
+              "space:1 group is not NCCL")
+        step1 = make_spatial_train_step(
+            *(m.to(dev) for m in build_models(cfg, space=mesh.space)), cfg, mesh.space)
+        s1, m1 = step1(sd, spatial_batch(batch, mesh.space), lr_t, wf_t)
+        torch.cuda.synchronize()
+    from multimodal_pl_tpu_torch.tools.spawn import states_unequal
+
+    unequal = states_unequal(s1, one_state)
+    m1, one_m = ({k: float(v) for k, v in m.items()} for m in (m1, one_m))
+    print(f"[16] space:1 over a one-rank NCCL group vs TrainStep, B=1 x {PATCH} bf16 kernels: "
+          f"states differ in {len(unequal)} leaves, metrics equal {m1 == one_m} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(not unequal and m1 == one_m, f"space:1 step differs from TrainStep: {unequal[:5]}")
+    out["space1_bit_equal"] = True
+    del s1, one_state, step1
+    torch.cuda.empty_cache()
+
+    # 2. one spawned rank (the step of a group of one, TrainStep): the
+    # gradients of the kernel, plain bf16 and plain f32 steps (phase 7's
+    # references), then the kernel step's peak GiB and wall ms at the patch
+    # and at 1 x 128^3
+    del sd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (single,) = spawn.run(spawn.dp_calls, 1, [
+        *((spawn.sp_grads, (c, state, host, wf, "cuda:0")) for c in (cfg, plain, plain32)),
+        (spawn.sp_grads, (plain32, state, host, wf, "cuda:0", None, True)),
+        (spawn.sp_step, (cfg, state, host, lr, wf, "cuda:0", None, True)),
+        (spawn.sp_step, (cfg, state, big, lr, wf, "cuda:0", None, True))], timeout=600)
+    single_s = time.perf_counter() - t0
+    ref = dict(zip(("kernel", "plain", "plain_f32", "plain_f64"), single[:4]))
+    single = single[4:]
+
+    # 3. two gloo ranks on the card: the kernel, plain f32 and faulty gradient
+    # passes, then the kernel step at the patch and at 1 x 128^3
+    calls = [(spawn.sp_grads, (cfg, state, host, wf, "cuda:0")),
+             (spawn.sp_grads, (plain32, state, host, wf, "cuda:0")),
+             (spawn.sp_grads, (cfg, state, host, wf, "cuda:0", spatial_fault.drop_halo_grads)),
+             (spawn.sp_step, (cfg, state, host, lr, wf, "cuda:0", None, True)),
+             (spawn.sp_step, (cfg, state, big, lr, wf, "cuda:0", None, True))]
+    t0 = time.perf_counter()
+    ranks = spawn.run(spawn.dp_calls, SPACE_N, calls, backend="gloo", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    (kl, kg), (pl, pg), (fl, fg), step_out, big_out = ranks[0]
+    for r, rank in enumerate(ranks[1:], 1):
+        same = (rank[0][0] == kl and all(torch.equal(rank[0][1][k], kg[k]) for k in kg)
+                and not states_unequal(rank[3][0], step_out[0]) and rank[3][1] == step_out[1])
+        check(same, f"rank {r}'s gradients or new state differ from rank 0's")
+    f32_loss, f32_grads = ref["plain_f32"]
+    ok, worst, kf, pf, med = grad_leaf_check(kg, f32_grads, ref["plain"][1])
+    loss_rel = abs(kl - ref["kernel"][0]) / abs(ref["kernel"][0])
+    loss_rel32 = abs(kl - f32_loss) / abs(f32_loss)
+    seg = [k for k in kg if k.startswith("params.")]
+    plain_rels = {k: rel_tree(pg, f32_grads, [k]) for k in f32_grads}
+    plain_leaf = max((v, k) for k, v in plain_rels.items())
+    plain_median = float(np.median(list(plain_rels.values())))
+    f64 = {k: g.float() for k, g in ref["plain_f64"][1].items()}
+    to_f64 = {name: [rel_tree(t, f64, [k]) for k in f64] for name, t in (("split", pg),
+                                                                       ("whole", f32_grads))}
+    med64 = {name: float(np.median(v)) for name, v in to_f64.items()}
+    worst64 = {name: max(v) for name, v in to_f64.items()}
+    f_ok, f_worst, f_kf, f_pf, f_med = grad_leaf_check(fg, f32_grads, ref["plain"][1])
+    step_loss_rel = abs(step_out[1]["loss"] - one_m["loss"]) / abs(one_m["loss"])
+    print(f"[16] {SPACE_N} gloo ranks on one card, B=1 x {PATCH} split along H, bf16 kernels "
+          f"({spawn_s:.1f} s for the spawn): ranks bit-equal; loss {kl:.6f} vs the one-rank "
+          f"kernel step's {ref['kernel'][0]:.6f} (rel {loss_rel:.2e}) and the f32 step's "
+          f"{f32_loss:.6f} (rel {loss_rel32:.2e}); segmenter gradients rel Frobenius vs f32 "
+          f"{rel_tree(kg, f32_grads, seg):.3e} (one-rank kernel "
+          f"{rel_tree(ref['kernel'][1], f32_grads, seg):.3e}, plain bf16 "
+          f"{rel_tree(ref['plain'][1], f32_grads, seg):.3e}); per leaf vs f32 / plain-bf16 vs "
+          f"f32: median {med:.3f}, worst {worst} {kf:.3e} vs {pf:.3e}; the new state's loss vs "
+          f"the one-rank step's rel {step_loss_rel:.2e}", flush=True)
+    check(loss_rel <= 3e-2 and loss_rel32 <= 3e-2 and step_loss_rel <= 3e-2,
+          f"spatial step loss: {kl} vs {ref['kernel'][0]}, f32 {f32_loss}, step "
+          f"{step_out[1]['loss']} vs {one_m['loss']}")
+    check(ok, f"spatial step gradient leaf {worst}: {kf} vs f32 > {LEAF_RATIO} x the plain "
+              f"bf16 step's {pf} + {LEAF_FLOOR}")
+    print(f"[16] plain f32 route (TF32 off), split vs whole: loss {pl:.7f} vs {f32_loss:.7f}, "
+          f"gradient leaves rel: median {plain_median:.2e}, worst {plain_leaf[0]:.2e} "
+          f"({plain_leaf[1]}), {sum(v > 1e-5 for v in plain_rels.values())} of "
+          f"{len(plain_rels)} above 1e-5; against the whole float64 step (loss "
+          f"{ref['plain_f64'][0]:.7f}): split median {med64['split']:.2e} worst "
+          f"{worst64['split']:.2e}, whole f32 median {med64['whole']:.2e} worst "
+          f"{worst64['whole']:.2e}", flush=True)
+    check(med64["split"] <= SPLIT_F64_RATIO * med64["whole"] + 1e-6
+          and plain_leaf[0] <= SPLIT_PLAIN_WORST and abs(pl - f32_loss) <= 1e-5 * abs(f32_loss),
+          f"plain f32 spatial step vs whole: to float64 {med64} {worst64}, worst {plain_leaf}, "
+          f"loss {pl} vs {f32_loss}")
+    print(f"[16] planted fault (tools/spatial_fault.py drop_halo_grads: no halo row's gradient "
+          f"returned): worst leaf {f_worst} {f_kf:.3e} vs f32 (plain bf16 {f_pf:.3e}), median "
+          f"ratio {f_med:.3f}: {'MISSED' if f_ok else 'caught'}", flush=True)
+    check(not f_ok, "the planted halo-gradient fault passed phase 16's per-leaf check")
+    for name, (s_, m_, calls_, ex_, peak, ms) in (("patch", step_out), ("128^3", big_out)):
+        check(all(np.isfinite(v) for v in m_.values()) and m_["grads_finite"] == 1.0,
+              f"spatial step metrics at {name}: {m_}")
+    launches, exchanges = step_out[2], step_out[3]
+    kinds = {}
+    for key, n in exchanges.items():
+        kinds[key[0]] = kinds.get(key[0], 0) + n
+    seg_gn = sum(n for k, n in launches["gn_apply"].items() if k[0] == "relu")
+    counts = {k: sum(v.values()) for k, v in launches.items()}
+    print(f"[16] rank 0's calls per step: {counts}; exchanges {kinds}", flush=True)
+    check(counts["gn_bwd_sums"] == counts["gn_bwd_dx"] == seg_gn == counts["gn_moments"] > 0,
+          f"slab GroupNorm calls per step {counts}")
+    check(kinds.get("halo_bwd", 0) == kinds.get("halo", 0) - 1,
+          f"every halo but the stem's returns its gradient: {kinds}")
+    peaks = {"patch": {"one_rank": single[0][4], "rank0_of_2": step_out[4],
+                       "rank1_of_2": ranks[1][3][4]},
+             "128^3": {"one_rank": single[1][4], "rank0_of_2": big_out[4],
+                       "rank1_of_2": ranks[1][4][4]}}
+    wall = {"patch": {"one_rank": single[0][5], "two_ranks_gloo": step_out[5]},
+            "128^3": {"one_rank": single[1][5], "two_ranks_gloo": big_out[5]}}
+    print(f"[16] peak GiB per rank (torch.cuda.max_memory_allocated in each rank's process): "
+          f"{peaks}; step wall ms (the second step of each process, synchronized; two ranks "
+          f"share one card over gloo, which stages through the host: not a scaling figure): "
+          f"{wall} ({single_s:.1f} s for the one-rank spawn)", flush=True)
+    out.update(loss_rel=loss_rel, loss_rel_f32=loss_rel32, leaf_worst=[worst, kf, pf],
+               leaf_median_ratio=med, plain_f32_leaf_worst=list(plain_leaf),
+               plain_f32_leaf_median=plain_median, plain_to_f64_median=med64,
+               plain_to_f64_worst=worst64,
+               plain_f32_leaves_above_1e5=sum(v > 1e-5 for v in plain_rels.values()),
+               fault={"worst": [f_worst, f_kf, f_pf], "median_ratio": f_med, "caught": not f_ok},
+               calls=counts, exchanges=kinds, peak_gib=peaks, step_ms=wall, spawn_s=spawn_s,
+               gathered_mb={"organ_probs_bf16": 2 * (NC - 1) * int(np.prod(PATCH)) / 2**20,
+                            "catlas_bf16": 2 * (NC - 1) * int(np.prod(PATCH)) / 2**20,
+                            "labels_int64": 8 * int(np.prod(PATCH)) / 2**20})
+
+    # 4. every kernel at every shape the path launched, against its plain version
+    print("[16] the spatial step's calls on rank 0, kernel vs plain at shapes not checked yet",
+          flush=True)
+    train_table, gn_table, gn_bwd_table, nograd_table, fold_table, rfwd_table, rbwd_table = tables
+    bwd_tables = phase_gn_bwd_split(dev, results, set(launches["gn_bwd_sums"]))
+    split_tables = phase_gn_split(dev, results, set(launches["gn_moments"]),
+                                  set(launches["gn_apply"]))
+    train_table = dict(train_table)
+    train_table.update(phase_train_conv(dev, results, {
+        k for k in launches["conv3x3"] if k[0] == conv3x3.TRAIN_FWD
+        and (k[1], k[2], *k[3:7]) not in train_table}))
+    more = phase_resize(dev, results, set(launches["resize"]) - set(rfwd_table),
+                        set(launches["resize_backward"]) - set(rbwd_table))
+    rfwd_table, rbwd_table = {**rfwd_table, **more[0]}, {**rbwd_table, **more[1]}
+    missing = ({k for k in launches["conv3x3"] if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)}
+               - set(nograd_table)) | (set(launches["gn_relu"]) - set(gn_table)) | (
+        set(launches["gn_relu_backward"]) - set(gn_bwd_table)) | (set(launches["fold"])
+                                                                  - set(fold_table))
+    check(not missing, f"the spatial step launched shapes phase 6 did not check: {missing}")
+    results["spatial_step"] = out
+
+    tag = f"spatial train step --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, one card)"
+    train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
+
+    def entry(label, src, replaces, n, rows):
+        check(n > 0 and rows, f"the spatial step launched no {label}")
+        if rows:
+            entries.append(kernel_entry(f"{label}, {tag}", src, replaces, n, rows))
+
+    entries = []
+    for label, specs, replaces in (
+            ("conv3x3_train: conv3x3_gn prologue off (forward and dx on halo-extended slabs; "
+             "gradient-free refiner)", train_specs, K2),
+            ("conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass", (conv3x3.FUSED,),
+             K2_GN)):
+        calls_ = {k: n for k, n in launches["conv3x3"].items() if k[0] in specs}
+        entry(label, SOURCE, replaces, sum(calls_.values()),
+              conv_rows(specs, calls_, train_table, nograd_table))
+    for key, label, src, replaces, table_ in (
+            ("gn_moments", "gn_moments_bf16 (slab statistics)", GN_SOURCE,
+             SPACE_REPLACES["moments"], split_tables[0]),
+            ("gn_apply", "gn_apply_bf16 (normalize from merged statistics)", GN_SOURCE,
+             SPACE_REPLACES["apply"], split_tables[1]),
+            ("gn_bwd_sums", "gn_bwd_sums_bf16 (slab sums of the GroupNorm -> ReLU backward)",
+             GN_SOURCE, GN_BWD_SPLIT, bwd_tables[0]),
+            ("gn_bwd_dx", "gn_bwd_dx_bf16 (dx from the merged sums, slab ds and dt)", GN_SOURCE,
+             GN_DX_SPLIT, bwd_tables[1]),
+            ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16), refiner", GN_SOURCE, GN_RELU,
+             gn_table),
+            ("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16), refiner", GN_SOURCE,
+             GN_BWD, gn_bwd_table),
+            ("fold", "group_norm_fold statistics (gn_fold_bf16), refiner gradient-free pass",
+             GN_SOURCE, GN_FOLD, fold_table),
+            ("resize", "resize3d forward (x2/x4/x8 on halo-extended slabs; refiner)",
+             RESIZE_SOURCE, RESIZE, rfwd_table),
+            ("resize_backward", "resize3d backward (gather form; slabs and refiner)",
+             RESIZE_SOURCE, RESIZE_BWD, rbwd_table)):
+        entry(label, src, replaces, sum(launches[key].values()),
+              [(n, table_[k]) for k, n in launches[key].items()])
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -2770,7 +3122,7 @@ def main() -> int:
 
 
 def run_phases(amos_data, campaign_data) -> int:
-    """Phases 1-15; ``amos_data``, ``campaign_data``: futures of phase 10's
+    """Phases 1-16; ``amos_data``, ``campaign_data``: futures of phase 10's
     synthetic cases and phase 15's fixture root."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
@@ -3038,6 +3390,12 @@ def run_phases(amos_data, campaign_data) -> int:
     campaign_run = phase_campaign(dev, results, campaign_data.result())
     phase_done("campaign")
 
+    # ---- phase 16: the spatial train step, each sample's H axis split over ranks ----
+    spatial_step_entries = phase_spatial_step(
+        dev, results, (train_table, gn_table, gn_bwd_table, nograd_table, fold_step_table,
+                       resize_fwd_table, resize_bwd_table))
+    phase_done("spatial train step")
+
     entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)
     serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
@@ -3152,6 +3510,7 @@ def run_phases(amos_data, campaign_data) -> int:
                                  [(n, table_[k]) for k, n in tile_batch[key].items()]))
     kernels += spatial_entries(spatial_run)
     kernels += campaign_entries(campaign_run)
+    kernels += spatial_step_entries
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

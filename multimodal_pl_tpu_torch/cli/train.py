@@ -15,8 +15,9 @@ It accepts every flag of the JAX CLI. Differences:
   multimodal_pl_tpu_torch.cli.train --mesh data:N ...`` (NCCL; gloo with
   ``--device cpu``). Each rank's device is ``cuda:LOCAL_RANK`` unless
   ``--device`` names an index. A mesh that is not the world size raises
-  ValueError; a ``space`` axis raises NotImplementedError (the spatial train
-  step is the next slice; ``mpl-evaluate-torch`` serves with it). Every rank runs
+  ValueError; a ``space`` axis raises NotImplementedError (JAX's trainer
+  builds the data-parallel step for any mesh; the H-split step is
+  ``parallel.spatial.make_spatial_train_step``). Every rank runs
   the step on its own batches (``--batch_size`` is per rank, as in the JAX
   CLI) and holds the same state; rank 0 alone validates, logs and writes
   checkpoints;
@@ -98,7 +99,7 @@ def get_arguments() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=str, default="",
                    help="data-parallel mesh data:N: N ranks under torchrun, one per GPU "
                         "(NCCL; gloo on the CPU); --batch_size is per rank. A space axis "
-                        "raises: the spatial train step is not ported yet")
+                        "raises: the trainer builds the data-parallel step only")
     p.add_argument("--model_base", type=int, default=32,
                    help="U-Net stage-width base (reference: 32)")
     p.add_argument("--model_layers", type=str, default="1,2,2,2,2",

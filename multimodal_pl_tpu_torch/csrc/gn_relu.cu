@@ -22,7 +22,11 @@
 //   - both of the above on a slab of an H-split sample (spatial
 //     parallelism): the slab's moments (gn_moments_bf16), exchanged between
 //     the ranks by the caller, then the normalize or the fold rows from the
-//     merged statistics (gn_apply_bf16).
+//     merged statistics (gn_apply_bf16); and the backward on such a slab in
+//     two calls around the caller's sum over the ranks: the slab's
+//     per-(sample, channel) sums of gy and gy * xhat (gn_bwd_sums_bf16),
+//     then dx from the whole sample's sums and the slab's own ds and dt
+//     (gn_bwd_dx_bf16).
 //
 // Statistics (forward and fold): each thread accumulates, for its 8
 // channels over its rows, sums of x - k and (x - k)^2 with k its first value
@@ -916,6 +920,87 @@ gn_apply_fold_kernel(const float* __restrict__ moments, int nslab,
   }
 }
 
+// ---- GroupNorm -> ReLU backward on a slab ----------------------------------
+//
+// The backward's only cross-slab quantities are the per-(sample, channel)
+// sums of gy and gy * xhat over the whole sample (P and Q of each group are
+// formed from them). gn_bwd_sums_bf16 writes the slab's (grid route, launch
+// 1, then one block per sample merging its blocks' partials in the fixed
+// order of gn_bwd_dx_kernel); the caller sums them over the ranks;
+// gn_bwd_dx_bf16 forms P and Q from the sums of the whole sample and writes
+// dx, and ds, dt from the slab's own sums (the slab's part of the parameter
+// gradients, which the caller sums with the others).
+
+// Per-group (mean, inv) of each sample into stats[b][2][groups], from the
+// slabs' moments (nslab > 0, merged as gn_apply_bf16 merges them) or copied
+// from (mean, inv) (nslab == 0); one block per sample.
+__global__ void __launch_bounds__(NT)
+gn_slab_stats_rows_kernel(const float* __restrict__ moments, int nslab, float* __restrict__ stats,
+                          long long S, int C, int groups, float eps) {
+  __shared__ float st[2][MAX_C];
+  const int b = blockIdx.x;
+  slab_group_stats(moments, nslab, gridDim.x, b, S, C, groups, eps, &st[0][0]);
+  for (int g = threadIdx.x; g < groups; g += NT) {
+    stats[(long long)b * 2 * groups + g] = st[0][g];
+    stats[(long long)b * 2 * groups + groups + g] = st[1][g];
+  }
+}
+
+// One block per sample: its blocks' partials partial[b][i][2][C] summed in
+// sum_blocks's order into sums[b][2][C] = (sum gy, sum gy * xhat).
+__global__ void __launch_bounds__(NT)
+gn_bwd_slab_sums_kernel(const float* __restrict__ partial, float* __restrict__ sums, int C,
+                        int nblk) {
+  __shared__ Sums red[NT];
+  __shared__ float tot[2][MAX_C];
+  const int b = blockIdx.x;
+  sum_blocks<NT>(partial + (long long)b * nblk * 2 * C, C, nblk, red, tot[0], tot[1]);
+  for (int c = threadIdx.x; c < C; c += NT) {
+    sums[((long long)b * 2) * C + c] = tot[0][c];
+    sums[((long long)b * 2 + 1) * C + c] = tot[1][c];
+  }
+}
+
+// Grid (dx_nblk, B + 1): blocks of row B - 1 and below read their sample's
+// whole-sample sums (sums[b][2][C]), form P and Q per group over `count`
+// values and write their rows of dx; block (0, B) sums the slab's own sums
+// (slab_sums[b][2][C]) over the samples in order into dsdt[2][C] (ds, dt).
+__global__ void __launch_bounds__(NT, 3)
+gn_bwd_slab_dx_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                      const float* __restrict__ stats, const float* __restrict__ scale,
+                      const float* __restrict__ bias, const float* __restrict__ slab_sums,
+                      const float* __restrict__ sums, __nv_bfloat16* __restrict__ dx,
+                      float* __restrict__ dsdt, long long S, int C, int groups, int B,
+                      float inv_count, long long block_rows) {
+  __shared__ float tot[2][MAX_C];
+  const int b = blockIdx.y;
+  if (b == B) {
+    if (blockIdx.x != 0) return;
+    for (int c = threadIdx.x; c < C; c += NT) {
+      float ds = 0.0f, dt = 0.0f;
+      for (int bb = 0; bb < B; ++bb) {
+        dt += slab_sums[((long long)bb * 2) * C + c];
+        ds += slab_sums[((long long)bb * 2 + 1) * C + c];
+      }
+      dsdt[c] = ds;
+      dsdt[C + c] = dt;
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < C; c += NT) {
+    tot[0][c] = sums[((long long)b * 2) * C + c];
+    tot[1][c] = sums[((long long)b * 2 + 1) * C + c];
+  }
+  __syncthreads();
+  group_pq(tot[0], tot[1], scale, C, groups, inv_count);
+  Chan p;
+  load_chan_stats(p, stats + (long long)b * 2 * groups, scale, bias,
+                  (threadIdx.x % (C / 8)) * 8, C / groups, groups);
+  const long long r0 = (long long)blockIdx.x * block_rows;
+  const long long off = (long long)b * S * C;
+  dx_rows(x + off, dy + off, dx + off, r0, rows_end(r0, block_rows, S), C, p, tot[0], tot[1]);
+}
+
 bool bad_shape(int B, long long S, int C, int groups) {
   return B < 1 || B > 65535 || S < 1 || C < 8 || C > MAX_C || C % 8 != 0 || groups < 1 ||
          C % groups != 0;
@@ -1196,6 +1281,59 @@ int gn_apply_bf16(const void* x, const void* moments, int nslab, const void* sca
     gn_apply_fold_kernel<<<B, NT, 0, st>>>(mo, nslab, sc, bi, static_cast<float*>(rows), S, C,
                                            groups, eps);
   }
+  return int(cudaGetLastError());
+}
+
+// The backward of the slab normalize of gn_apply_bf16, part 1: for a
+// contiguous (B, S, C) bf16 slab x and incoming gradient dy, with the slabs'
+// moments (nslab > 0: (nslab, B, 2, groups) (mean, M2) merged in rank order;
+// nslab == 0: (B, 2, groups) (mean, inv)), writes stats (B, 2, groups) f32
+// = the (mean, inv) it used, and sums (B, 2, C) f32 = this slab's (sum gy,
+// sum gy * xhat) per sample and channel (sums blocks of `rows` rows, nblk of
+// them, in clusters of STATS_CLUSTER; workspace f32 B * nblk * 2 * C).
+// Three launches. Returns a cudaError_t as int.
+int gn_bwd_sums_bf16(const void* x, const void* dy, const void* moments, int nslab,
+                     const void* scale, const void* bias, void* stats, void* sums,
+                     void* workspace, int B, long long S, int C, int groups, float eps,
+                     long long rows, int nblk, void* stream) {
+  if (bad_shape(B, S, C, groups) || nslab < 0 || bad_grid(S, rows, nblk))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* stb = static_cast<float*>(stats);
+  float* partial = static_cast<float*>(workspace);
+  gn_slab_stats_rows_kernel<<<B, NT, 0, st>>>(static_cast<const float*>(moments), nslab, stb, S,
+                                              C, groups, eps);
+  int err = int(cudaGetLastError());
+  if (err) return err;
+  const int grid = stats_blocks(nblk);
+  err = launch_cluster(gn_bwd_sums_kernel, dim3(grid, B, 1), STATS_CLUSTER, 0, st,
+                       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+                       static_cast<const float*>(stb), static_cast<const float*>(scale),
+                       static_cast<const float*>(bias), partial, S, C, groups, rows);
+  if (err) return err;
+  gn_bwd_slab_sums_kernel<<<B, NT, 0, st>>>(partial, static_cast<float*>(sums), C,
+                                            grid / STATS_CLUSTER);
+  return int(cudaGetLastError());
+}
+
+// Part 2: dx (like x) from the whole sample's sums (B, 2, C) f32 over
+// `count` values per group (the whole sample's voxels times the channels of
+// a group), with the stats that part 1 wrote; dsdt (2, C) f32 = this slab's
+// (d scale, d bias) from its own sums slab_sums (part 1's). dx blocks of
+// dx_block_rows rows (dx_nblk). One launch. Returns a cudaError_t as int.
+int gn_bwd_dx_bf16(const void* x, const void* dy, const void* stats, const void* scale,
+                   const void* bias, const void* slab_sums, const void* sums, void* dx,
+                   void* dsdt, int B, long long S, int C, int groups, long long count,
+                   long long dx_block_rows, int dx_nblk, void* stream) {
+  if (bad_shape(B, S, C, groups) || bad_grid(S, dx_block_rows, dx_nblk) || count < 1)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gn_bwd_slab_dx_kernel<<<dim3(dx_nblk, B + 1), NT, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const float*>(stats), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(slab_sums),
+      static_cast<const float*>(sums), static_cast<__nv_bfloat16*>(dx),
+      static_cast<float*>(dsdt), S, C, groups, B, 1.0f / float(count), dx_block_rows);
   return int(cudaGetLastError());
 }
 

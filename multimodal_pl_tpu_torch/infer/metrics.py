@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from multimodal_pl_tpu_torch.ops.norm import split
+
 
 def _flat(pred: torch.Tensor, target: torch.Tensor):
     b = pred.shape[0]
@@ -34,10 +36,13 @@ def senc_score(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return ((p * t).sum(1) / (t.sum(1) + 1.0)).mean()
 
 
-def _organ_scores(p: torch.Tensor, t: torch.Tensor):
-    """p, t: (L, B, S) 0/1 f32 -> (dice, senc, spec), each (L,)."""
-    num = (p * t).sum(-1)
-    psum, tsum = p.sum(-1), t.sum(-1)
+def _organ_scores(p: torch.Tensor, t: torch.Tensor, space=None):
+    """p, t: (L, B, S) 0/1 f32 -> (dice, senc, spec), each (L,). ``space``
+    (a SpatialGroup): S is this rank's H slab of the voxels, and the sums
+    are summed over the ranks first."""
+    num, psum, tsum = (p * t).sum(-1), p.sum(-1), t.sum(-1)
+    if split(space):
+        num, psum, tsum = space.sum(torch.stack([num, psum, tsum])).unbind(0)
     dice = (2.0 * num / (psum + tsum + 1.0)).mean(-1)
     senc = (num / (tsum + 1.0)).mean(-1)
     spec = (num / (psum + 1.0)).mean(-1)
@@ -50,17 +55,18 @@ def _one_hot_fg(labels: torch.Tensor, num_fg: int) -> torch.Tensor:
     return (labels.reshape(1, b, -1) == classes[:, None, None]).float()
 
 
-def label_scores(pred: torch.Tensor, labels: torch.Tensor, num_fg: int = 13):
+def label_scores(pred: torch.Tensor, labels: torch.Tensor, num_fg: int = 13, space=None):
     """(dice, senc, spec), each (num_fg,), of a label map pred (B, D, H, W)
-    against labels (B, D, H, W)."""
-    return _organ_scores(_one_hot_fg(pred, num_fg), _one_hot_fg(labels, num_fg))
+    against labels (B, D, H, W) (this rank's H slabs of them under a split
+    of ``space``)."""
+    return _organ_scores(_one_hot_fg(pred, num_fg), _one_hot_fg(labels, num_fg), space)
 
 
-def organ_scores(logits: torch.Tensor, labels: torch.Tensor, num_fg: int = 13):
+def organ_scores(logits: torch.Tensor, labels: torch.Tensor, num_fg: int = 13, space=None):
     """Reference get_dice (evaluate_amos.py:128-154), atlas=None branch.
     logits (B, D, H, W, C) -> (dice, senc, spec, argmax prediction)."""
     pred = logits.argmax(dim=-1)
-    return (*label_scores(pred, labels, num_fg), pred)
+    return (*label_scores(pred, labels, num_fg, space), pred)
 
 
 def organ_scores_atlas(logits: torch.Tensor, labels: torch.Tensor,

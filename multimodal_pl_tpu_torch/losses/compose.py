@@ -15,6 +15,7 @@ import torch
 
 from multimodal_pl_tpu_torch.losses.dice import SMOOTH, binary_dice_masked
 from multimodal_pl_tpu_torch.losses.partial import edice_partial
+from multimodal_pl_tpu_torch.ops.norm import split
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest
 
 DEEP_WEIGHTS = (0.125, 0.25, 0.5, 1.0)  # losses.py:116
@@ -30,7 +31,8 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torc
                       refiner_logits: torch.Tensor | None = None,
                       label_d: torch.Tensor | None = None,
                       weight_feature: torch.Tensor | float = 0.1,
-                      confidence: float = 0.10, aux_weight: float = 1.0) -> torch.Tensor:
+                      confidence: float = 0.10, aux_weight: float = 1.0,
+                      space=None) -> torch.Tensor:
     """The reference ``get_loss``, channels-last.
 
     logits: (B, D, H, W, C); labels: (B, D, H, W) with the unsupervised organs
@@ -39,11 +41,17 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torc
     configuration passes none); attns: 3 attention maps (B, D', H', W', C-1);
     refiner_logits: (C-1, D, H, W, 2) for every organ, or None in the
     pretrain phase; label_d: (C-1,) per-case organ supervision bits — the
-    consistency term covers the organs NOT supervised in this case."""
+    consistency term covers the organs NOT supervised in this case.
+    ``space`` (a SpatialGroup): every voxel tensor, refiner_logits
+    included, is this rank's H slab, and every sum over the voxels is
+    summed over the ranks (``losses.dice``); each rank gets the whole loss.
+    The deep outputs are not split."""
     num_fg = logits.shape[-1] - 1
-    loss = edice_partial(logits, labels, sup_mask, uce=True)
+    loss = edice_partial(logits, labels, sup_mask, uce=True, space=space)
 
     aux = 0.0
+    if deep_outs and split(space):
+        raise NotImplementedError("segmentation_loss: deep outputs under an H split")
     for idx, d in enumerate(deep_outs):
         ct = _nearest_labels(labels, d.shape[1:4])
         aux = aux + edice_partial(d, ct, sup_mask, uce=False) * DEEP_WEIGHTS[idx]
@@ -64,7 +72,7 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torc
     for idx, amap in enumerate(maps):
         organ_maps = amap[0].movedim(-1, 0).float()                # (13, D, H, W)
         scores = torch.sigmoid(organ_maps) if idx != 3 else organ_maps
-        d = binary_dice_masked(scores, p1, confi1, axes=(1, 2, 3))
+        d = binary_dice_masked(scores, p1, confi1, axes=(1, 2, 3), space=space)
         aux = aux + (d * u).sum() / denom * DEEP_WEIGHTS[idx] * weight_feature
     return loss + aux * aux_weight
 

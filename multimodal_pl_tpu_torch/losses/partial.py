@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from multimodal_pl_tpu_torch.losses.dice import binary_dice_masked, multiclass_dice
+from multimodal_pl_tpu_torch.losses.dice import binary_dice_masked, multiclass_dice, voxel_sums
+from multimodal_pl_tpu_torch.ops.norm import split
 
 _LOG_CLAMP = -100.0  # torch BCELoss clamps log terms at -100
 
@@ -45,22 +46,28 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
 
 
 def edice_partial(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torch.Tensor,
-                  uce: bool = True) -> torch.Tensor:
+                  uce: bool = True, space=None) -> torch.Tensor:
     """Marginal masked softmax Dice (+ per-channel BCE),
     EDiceLoss_partial.forward with soft_max=True, the only form the losses
     use. logits: (B, D, H, W, C); labels: (B, D, H, W); sup_mask: (C,) 0/1
-    class weights."""
+    class weights. ``space``: the voxels are this rank's H slab, and the
+    Dice sums and the BCE's sum are summed over the ranks (``losses.dice``)."""
     nc = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     w = sup_mask.to(probs.dtype)
-    loss = multiclass_dice(probs, labels, nc, weight=w)
+    loss = multiclass_dice(probs, labels, nc, weight=w, space=space)
     if uce:
         onehot = F.one_hot(labels.long(), nc).float()
         p = probs.float()
         logp = torch.clamp(torch.log(p), min=_LOG_CLAMP)
         lognp = torch.clamp(torch.log1p(-p), min=_LOG_CLAMP)
-        per_ch = -(onehot * logp + (1.0 - onehot) * lognp).mean(
-            dim=tuple(range(logits.ndim - 1)))
+        bce = -(onehot * logp + (1.0 - onehot) * lognp)
+        axes = tuple(range(logits.ndim - 1))
+        if split(space):
+            count = bce.numel() // nc * space.world
+            per_ch = voxel_sums((bce,), axes, space)[0] / count
+        else:
+            per_ch = bce.mean(dim=axes)
         loss = loss + (per_ch * w.float()).sum()
     return loss
 

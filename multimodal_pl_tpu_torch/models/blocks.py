@@ -28,13 +28,15 @@ heads are library convs, as XLA runs them in the JAX package.
 
 ``space`` (a :class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialGroup`
 of more than one rank, or None) splits each sample's H axis over the ranks
-of a group, without autograd: every 3x3x3 conv runs on the slab with its
+of a group, on either route: every 3x3x3 conv runs on the slab with its
 neighbours' boundary rows attached and is cropped back to the slab's rows
 (a stride-1 conv attaches one row each side and none at a global edge, where
 its own zero padding is the right one; a stride-2 conv one row below, zero at
 the edge, and pads H by nothing); every GroupNorm takes the whole samples'
 statistics (the slabs' moments gathered and merged). The residual of a
-fused block is the halo-extended input. A group of one rank is no split.
+fused block is the halo-extended input. The halo, the crop and the
+GroupNorm -> ReLU carry their gradients across the slabs, so the training
+route differentiates through the split. A group of one rank is no split.
 """
 
 from __future__ import annotations
@@ -74,14 +76,6 @@ def check_gn_impl(gn_impl: str) -> str:
 def recording(x: torch.Tensor, weight: torch.Tensor) -> bool:
     """Autograd records this op: grad mode on and x or the weight needs grad."""
     return torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad)
-
-
-def no_split_gradient(space) -> None:
-    """Raises where autograd would record through an H-split forward."""
-    if split(space):
-        raise NotImplementedError(
-            "the H-split (--mesh space:N) forward has no gradient yet: the spatial train step "
-            "is the next slice (ROADMAP.md queue 1); run the model under torch.no_grad")
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, conv_impl: str) -> torch.Tensor:
@@ -132,8 +126,6 @@ class WSConv3d(nn.Module):
         w = self.kernel_for(x.dtype)
         if not split(self.space) or w.shape[2] == 1:
             return conv3d(x, w, self.stride, self.padding, bias)
-        if recording(x, self.weight):
-            no_split_gradient(self.space)
         if self.stride == 1:
             ext, lo = self.space.halo_rows(x, 1, 1)
             return self.space.crop_rows(conv3d(ext, w, 1, self.padding, bias), lo, x.shape[2])
@@ -220,7 +212,6 @@ class NoBottleneck(nn.Module):
     def forward(self, x):
         x = x.contiguous()
         if recording(x, self.conv2.weight):
-            no_split_gradient(self.space)
             return self._train_forward(x)
         h = x.shape[2]
         if self.stride == 1:
@@ -248,15 +239,20 @@ class NoBottleneck(nn.Module):
         return self.space.crop_rows(y, lo, rows) if split(self.space) else y
 
     def _train_forward(self, x):
-        """The voxel route of the JAX NoBottleneck (models/blocks.py:183-202)."""
+        """The voxel route of the JAX NoBottleneck (models/blocks.py:183-202);
+        under a split each stride-1 conv runs on the halo-extended slab."""
         out = self.gn1.relu(x, self.gn_impl)
         if self.stride == 1:
-            out = self.conv3x3_train(out, self.conv1.kernel_for(x.dtype))
+            out = self._conv3x3_train(out, self.conv1.kernel_for(x.dtype))
         else:
             out = self.conv1(out)
         out = self.gn2.relu(out, self.gn_impl)
-        out = self.conv3x3_train(out, self.conv2.kernel_for(x.dtype))
+        out = self._conv3x3_train(out, self.conv2.kernel_for(x.dtype))
         return out + (x if self.downsample is None else self.downsample(x))
+
+    def _conv3x3_train(self, x, w):
+        xe, lo = self._halo(x)
+        return self._crop(self.conv3x3_train(xe, w), lo, x.shape[2])
 
 
 class ResStage(nn.Sequential):

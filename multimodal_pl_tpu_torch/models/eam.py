@@ -89,6 +89,18 @@ class EAM(nn.Module):
         out = _linear(self.proj, self.norm2(out)) + out
         return out, attn
 
+    def scores(self, x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The raw scores of :meth:`forward` (B, heads, Nt, N) f32, the same
+        bits, without the softmax over the voxels and the token update: a
+        score is per voxel, so the scores of an H slab are the slab's
+        columns of the whole tile's (the train step's forward uses only
+        these)."""
+        tokens = _broadcast_tokens(tokens, x)
+        h = self.num_heads
+        k, _ = _linear(self.kv, self.norm2(x)).chunk(2, dim=-1)
+        q = _linear(self.q, self.norm3(tokens))
+        return _split_heads(q, h).float() @ _split_heads(k, h).float().transpose(-1, -2)
+
 
 class EAMBK(nn.Module):
     """Un-normed variant with biased kv and q projections (reference

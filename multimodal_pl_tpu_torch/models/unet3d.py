@@ -45,13 +45,16 @@ and the attention maps' resize), or their plain versions; ``gn_impl`` the
 GroupNorm -> ReLU kernel or its plain version.
 
 ``space`` (a :class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialGroup`)
-splits each tile's H axis over the ranks of a group for serving
-(``models/blocks.py``; the decoder's upsample takes one source row each
-side, the edge row repeated at the global edges). Under a split of more than
-one rank only the logits path runs: ``UNet3DFEAM`` with ``aux=False`` and
-``UNet3DBaseline``; ``aux=True``, the other ablations and autograd raise
-NotImplementedError (the spatial train step and the ablations under
-``space`` are the next slice, ROADMAP.md queue 1).
+splits each tile's H axis over the ranks of a group, for serving and for the
+spatial train step (``models/blocks.py``; every upsample, the decoder's x2
+and the attention maps' x2/x4/x8, takes one source row each side, the edge
+row repeated at the global edges). Under a split of more than one rank,
+``UNet3DFEAM`` runs with or without autograd, with ``aux=True`` (the train
+step's forward: the EAM scores are per voxel, so slab-local; the maps and
+features are the slab's rows) or ``aux=False``, and ``UNet3DBaseline``
+runs. ``deep_up=False`` with ``aux`` (its maps feed the discriminator at
+their own scales), the feam2 token pre-update, ``remat`` under autograd and
+the other ablations raise NotImplementedError (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -70,14 +73,13 @@ from multimodal_pl_tpu_torch.models.blocks import (
     ResStage,
     WSConv3d,
     init_default_,
-    no_split_gradient,
 )
 from multimodal_pl_tpu_torch.models.eam import EAM, _linear, attn_to_map
 from multimodal_pl_tpu_torch.models.tokens import ema_update_tokens
 from multimodal_pl_tpu_torch.ops.norm import split
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest, upsample_trilinear
 
-NEXT_SLICE = "the spatial train step and the ablations under space (ROADMAP.md queue 1)"
+NEXT_SLICE = "ROADMAP.md queue 1, the rest of the spatial slice"
 
 
 def unsplit_only(name: str, space) -> None:
@@ -121,9 +123,8 @@ class Trunk(nn.Module):
         """x: (B, D, H, W, 1) -> ((skip0, skip1, skip2, skip3), the fusion
         head's output at 1/16 scale). Under a split, x is this rank's H slab
         (``parallel.spatial.check_divisible`` holds its size)."""
-        if split(self.space) and torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad for p in self.parameters())):
-            no_split_gradient(self.space)
+        if self.remat and torch.is_grad_enabled():
+            unsplit_only("remat (checkpointed stages)", self.space)
         stage = self._stage
         x = self.conv1(x)
         skip0 = x = stage(self.layer0, x)
@@ -140,16 +141,19 @@ class Trunk(nn.Module):
             x = self._stage(resb, self._upsample(x, skip))
             yield x
 
-    def _upsample(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        """upsample_trilinear(x, 2, skip); under a split on x's slab with one
-        source row each side (the edge row repeated at a global edge, as the
-        half-pixel sampling clamps), upsampled without the skip, which is
-        added to the slab's rows in the pass that crops them out."""
+    def _upsample(self, x: torch.Tensor, skip: torch.Tensor | None,
+                  factor: int = 2) -> torch.Tensor:
+        """upsample_trilinear(x, factor, skip); under a split on x's slab with
+        one source row each side (the edge row repeated at a global edge, as
+        the half-pixel sampling clamps: an output row reads at most one
+        source row beyond its slab at any factor), upsampled without the
+        skip, which is added to the slab's rows in the pass that crops them
+        out."""
         if not split(self.space):
-            return upsample_trilinear(x, 2, skip, self.conv_impl)
+            return upsample_trilinear(x, factor, skip, self.conv_impl)
         xe, _ = self.space.halo_rows(x, 1, 1, "repeat")
-        return self.space.crop_rows(upsample_trilinear(xe, 2, None, self.conv_impl), 2,
-                                    2 * x.shape[2], add=skip)
+        return self.space.crop_rows(upsample_trilinear(xe, factor, None, self.conv_impl), factor,
+                                    factor * x.shape[2], add=skip)
 
     def _stage(self, stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
         """stage(x), checkpointed when ``remat`` is set and autograd records.
@@ -205,10 +209,14 @@ class UNet3DFEAM(Trunk):
         only when aux; mask: (B, D, H, W) labels, read only with
         token_update='pre'. Returns (logits, attn_maps, deep_maps, features,
         tokens), or the logits alone when not aux; deep_maps is empty when
-        not deep. Under an H split only aux=False runs."""
-        if aux:
-            unsplit_only("UNet3DFEAM(aux=True): the EAM maps, the deep heads and the token "
-                         "updates", self.space)
+        not deep. Under an H split x is this rank's slab and so is every
+        output; aux needs deep_up and no token pre-update."""
+        if aux and not self.deep_up:
+            unsplit_only("UNet3DFEAM(deep_up=False, aux=True): its attention maps feed the "
+                         "discriminator at their own scales", self.space)
+        if aux and self.token_update == "pre" and mask is not None:
+            unsplit_only("the feam2 token pre-update (class means over the whole tile)",
+                         self.space)
         full_spatial = tuple(x.shape[1:4])
         skips, x = self.encode(x)
         attn_maps, deep_maps, features = [], [], []
@@ -230,11 +238,9 @@ class UNet3DFEAM(Trunk):
             if self.use_cm[i]:
                 x_t = x.reshape(x.shape[0], -1, x.shape[-1])
                 tok = new_tokens[key].detach().to(x.dtype)
-                _, attn = eam(x_t, tok[None])
-                amap = attn_to_map(attn, x.shape[1:4])
+                amap = attn_to_map(eam.scores(x_t, tok[None]), x.shape[1:4])
                 if self.deep_up:
-                    amap = upsample_trilinear(amap, full_spatial[0] // amap.shape[1],
-                                              impl=self.conv_impl)
+                    amap = self._upsample(amap, None, full_spatial[0] // amap.shape[1])
                 attn_maps.append(amap)
 
         logits = self.precls_conv(x)

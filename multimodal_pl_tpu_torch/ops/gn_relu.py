@@ -27,12 +27,17 @@ backward kernel calls by (C, groups, B, D, H, W), only where a kernel is
 launched.
 
 With ``space`` (a SpatialGroup of more than one rank: x is this rank's H
-slab of each sample; no gradient), :func:`split_group_norm` runs instead:
-the slab statistics kernel ``gn_moments_bf16`` (:func:`gn_moments`), a
-gather of every slab's moments over the group, and ``gn_apply_bf16``
+slab of each sample), :func:`split_group_norm` runs instead: the slab
+statistics kernel ``gn_moments_bf16`` (:func:`gn_moments`), a gather of
+every slab's moments over the group, and ``gn_apply_bf16``
 (:func:`gn_apply`), which merges them in rank order and normalizes (or
-writes the fold rows) as ``gn_relu_fwd_bf16`` does; each has a plain twin.
-``moments_launches`` and ``apply_launches`` count those calls.
+writes the fold rows) as ``gn_relu_fwd_bf16`` does. Its gradient
+(:class:`_SplitGroupNormReLU`) is ``gn_relu_bwd_bf16`` in two calls around a
+sum over the ranks: ``gn_bwd_sums_bf16`` (:func:`gn_bwd_sums`, the slab's
+per-(sample, channel) sums of gy and gy * xhat) and ``gn_bwd_dx_bf16``
+(:func:`gn_bwd_dx`, dx from the whole sample's sums, and the slab's ds and
+dt). Each has a plain twin. ``moments_launches``, ``apply_launches``,
+``bwd_sums_launches`` and ``bwd_dx_launches`` count those calls.
 """
 
 from __future__ import annotations
@@ -68,10 +73,15 @@ bwd_launches: collections.Counter = collections.Counter()
 # gn_apply_bf16 calls by (mode, C, groups, B, D, H, W), mode 'relu' or 'fold'
 moments_launches: collections.Counter = collections.Counter()
 apply_launches: collections.Counter = collections.Counter()
+# its backward on a slab: gn_bwd_sums_bf16 and gn_bwd_dx_bf16 calls by (C,
+# groups, B, D, H, W)
+bwd_sums_launches: collections.Counter = collections.Counter()
+bwd_dx_launches: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
-    for counter in (launches, bwd_launches, moments_launches, apply_launches):
+    for counter in (launches, bwd_launches, moments_launches, apply_launches,
+                    bwd_sums_launches, bwd_dx_launches):
         counter.clear()
 
 
@@ -108,21 +118,51 @@ def group_norm_relu_backward_reference(x: torch.Tensor, dy: torch.Tensor, scale:
     and voxels, and per (sample, group) P = sum gy * s, Q = sum gy * s * xhat
     over the group's channels and voxels, dx = inv * (gy * s - (P + xhat *
     Q) / count). stats: the forward's (B, 2, groups) mean and inv. Returns
-    (dx in x.dtype, ds, dt in f32)."""
+    (dx in x.dtype, ds, dt in f32): :func:`gn_bwd_dx_reference` of the
+    sample's own :func:`gn_bwd_sums_reference`."""
     _check_groups(x, groups)
+    sums = gn_bwd_sums_reference(x, dy, scale, bias, stats)
+    count = x.numel() // x.shape[0] // groups
+    return gn_bwd_dx_reference(x, dy, scale, bias, stats, sums, sums, count)
+
+
+def _gy_xhat(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             stats: torch.Tensor):
+    """(gy, xhat, s) in f32 of the plain backward, (B, S, C) each."""
     b, c = x.shape[0], x.shape[-1]
-    cpg = c // groups
+    cpg = c // stats.shape[-1]
     xf = x.float().reshape(b, -1, c)
     mean_c, inv_c = (stats[:, i].float().repeat_interleave(cpg, -1)[:, None] for i in (0, 1))
     s, t = scale.to(x.dtype).float(), bias.to(x.dtype).float()
     xhat = (xf - mean_c) * inv_c
     gy = torch.where(xhat * s + t > 0, dy.float().reshape(b, -1, c), 0.0)
-    dt_nc, ds_nc = gy.sum(1), (gy * xhat).sum(1)
-    count = float(xf.shape[1] * cpg)
-    p, q = ((v * s).reshape(b, groups, cpg).sum(-1).repeat_interleave(cpg, -1)[:, None]
+    return gy, xhat, s, inv_c
+
+
+def gn_bwd_sums_reference(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gn_bwd_sums`: per (sample, channel) the sums
+    of gy and gy * xhat over x's voxels, (B, 2, C) f32, from the forward's
+    (B, 2, groups) mean and inv."""
+    gy, xhat, _, _ = _gy_xhat(x, dy, scale, bias, stats)
+    return torch.stack([gy.sum(1), (gy * xhat).sum(1)], 1)
+
+
+def gn_bwd_dx_reference(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, stats: torch.Tensor, slab_sums: torch.Tensor,
+                        sums: torch.Tensor, count: int):
+    """Plain version of :func:`gn_bwd_dx`: dx of x from ``sums`` (B, 2, C),
+    the whole sample's sums of gy and gy * xhat, P and Q per group over
+    ``count`` values; ds, dt (C,) f32 from ``slab_sums``, x's own sums,
+    summed over the samples. Returns (dx in x.dtype, ds, dt)."""
+    b, c = x.shape[0], x.shape[-1]
+    cpg = c // stats.shape[-1]
+    gy, xhat, s, inv_c = _gy_xhat(x, dy, scale, bias, stats)
+    dt_nc, ds_nc = sums.unbind(1)
+    p, q = ((v * s).reshape(b, -1, cpg).sum(-1).repeat_interleave(cpg, -1)[:, None]
             for v in (dt_nc, ds_nc))
-    dx = inv_c * (gy * s - (p + xhat * q) / count)
-    return dx.to(x.dtype).reshape(x.shape), ds_nc.sum(0), dt_nc.sum(0)
+    dx = inv_c * (gy * s - (p + xhat * q) / float(count))
+    return dx.to(x.dtype).reshape(x.shape), slab_sums[:, 1].sum(0), slab_sums[:, 0].sum(0)
 
 
 @functools.cache
@@ -140,6 +180,11 @@ def _lib():
     lib.gn_apply_bf16.argtypes = ([ptr, ptr, i32] + [ptr] * 4
                                   + [i32, i64, i32, i32, f32, i64, i32, ptr])
     lib.gn_apply_bf16.restype = i32
+    lib.gn_bwd_sums_bf16.argtypes = ([ptr] * 3 + [i32] + [ptr] * 5
+                                     + [i32, i64, i32, i32, f32, i64, i32, ptr])
+    lib.gn_bwd_sums_bf16.restype = i32
+    lib.gn_bwd_dx_bf16.argtypes = [ptr] * 9 + [i32, i64, i32, i32, i64, i64, i32, ptr]
+    lib.gn_bwd_dx_bf16.restype = i32
     lib.gn_relu_limits.argtypes = [ctypes.POINTER(i32)] * 3
     lib.gn_relu_limits.restype = i32
     lib.gn_relu_error_string.argtypes = [i32]
@@ -421,23 +466,126 @@ def gn_apply(x: torch.Tensor, moments: torch.Tensor, scale: torch.Tensor, bias: 
     return (rows[0], rows[1]) if fold else out
 
 
+def gn_bwd_sums(x: torch.Tensor, dy: torch.Tensor, moments: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, groups: int, eps: float = EPS):
+    """The slab backward's first kernel (``gn_bwd_sums_bf16``) on CUDA
+    tensors: from ``moments`` as :func:`gn_apply` takes them, (stats (B, 2,
+    groups) f32, the (mean, inv) used; sums (B, 2, C) f32, this slab's sums
+    of gy and gy * xhat per sample and channel)."""
+    _check_kernel_input("x", x, x)
+    _check_kernel_input("dy", dy, x)
+    _check_groups(x, groups)
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    nslab = moments.shape[0] if moments.ndim == 4 else 0
+    if (tuple(moments.shape[-3:]) != (b, 2, groups) or moments.dtype != torch.float32
+            or not moments.is_contiguous() or moments.device != x.device):
+        raise ValueError(f"gn_bwd_sums: moments must be contiguous f32 (N, {b}, 2, {groups}) or "
+                         f"({b}, 2, {groups}) on {x.device}, got {moments.dtype} "
+                         f"{tuple(moments.shape)} on {moments.device}")
+    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    rows, nblk = stats_plan(b, s, c, limits(x.device.index).stats_clusters[1])
+    stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_bwd_sums_bf16(
+            x.data_ptr(), dy.data_ptr(), moments.data_ptr(), nslab, scale.data_ptr(),
+            bias.data_ptr(), stats.data_ptr(), sums.data_ptr(), workspace.data_ptr(), b, s, c,
+            groups, eps, rows, nblk, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_bwd_sums launch")
+    bwd_sums_launches[(c, groups, b, *x.shape[1:-1])] += 1
+    return stats, sums
+
+
+def gn_bwd_dx(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, slab_sums: torch.Tensor, sums: torch.Tensor, groups: int,
+              count: int):
+    """The slab backward's second kernel (``gn_bwd_dx_bf16``) on CUDA
+    tensors: (dx bf16 like x, from the whole sample's ``sums`` (B, 2, C)
+    over ``count`` values per group; ds, dt f32 (C,), this slab's, from its
+    own ``slab_sums``)."""
+    _check_kernel_input("x", x, x)
+    _check_kernel_input("dy", dy, x)
+    _check_groups(x, groups)
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // (b * c)
+    for name, t, shape in (("stats", stats, (b, 2, groups)), ("slab_sums", slab_sums, (b, 2, c)),
+                           ("sums", sums, (b, 2, c))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"gn_bwd_dx: {name} must be contiguous f32 {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
+    dx = torch.empty_like(x)
+    dsdt = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    dx_rows, dx_nblk = grid_plan(x.numel(), s, c)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_bwd_dx_bf16(
+            x.data_ptr(), dy.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            slab_sums.data_ptr(), sums.data_ptr(), dx.data_ptr(), dsdt.data_ptr(), b, s, c,
+            groups, int(count), dx_rows, dx_nblk, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gn_bwd_dx launch")
+    bwd_dx_launches[(c, groups, b, *x.shape[1:-1])] += 1
+    return dx, dsdt[0], dsdt[1]
+
+
 def split_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                      space, kernel: bool, fold: bool = False, eps: float = EPS):
     """relu(GroupNorm(x)) (or with ``fold`` the fold rows a, b) of this
     rank's slab x with the statistics of the whole samples: the slab's
     moments, gathered over ``space`` (a SpatialGroup), merged in rank order.
     ``kernel``: gn_moments and gn_apply (CUDA tensors), else their plain
-    versions."""
+    versions. No gradient (:class:`_SplitGroupNormReLU` has one)."""
+    return _split_forward(x, scale, bias, groups, space, kernel, fold, eps)[0]
+
+
+def _split_forward(x, scale, bias, groups, space, kernel: bool, fold: bool = False,
+                   eps: float = EPS):
+    """(:func:`split_group_norm`'s result, the statistics its backward
+    reads: the gathered moments (kernel) or the merged (mean, inv))."""
     _check_groups(x, groups)
     if kernel:
-        return gn_apply(x, space.gather(gn_moments(x, groups), "stats"), scale, bias, groups,
-                        fold, eps)
+        moments = space.gather(gn_moments(x, groups), "stats")
+        return gn_apply(x, moments, scale, bias, groups, fold, eps), moments
     count = float(x.numel() // (x.shape[0] * groups))
     stats = merge_moments_reference(space.gather(group_moments_reference(x, groups), "stats"),
                                     count, eps)
     if fold:
-        return fold_from_stats_reference(stats, scale, bias)
-    return group_norm_relu_from_stats_reference(x, stats, scale, bias)
+        return fold_from_stats_reference(stats, scale, bias), stats
+    return group_norm_relu_from_stats_reference(x, stats, scale, bias), stats
+
+
+class _SplitGroupNormReLU(torch.autograd.Function):
+    """relu(GroupNorm) of an H slab with the whole samples' statistics, and
+    its gradient: the slab's sums of gy and gy * xhat (``gn_bwd_sums``),
+    summed over the ranks (one all_reduce of (B, 2, C) f32, counted as
+    'gn_sums'), then dx from the sums and this slab's ds, dt
+    (``gn_bwd_dx``); ds and dt are the slab's parts of the parameter
+    gradients, which the train step sums over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, space, kernel):
+        y, stats = _split_forward(x, scale, bias, groups, space, kernel)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.groups, ctx.space, ctx.kernel = groups, space, kernel
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, stats = ctx.saved_tensors
+        groups, space = ctx.groups, ctx.space
+        count = x.numel() // x.shape[0] // groups * space.world
+        g = g.contiguous()
+        if ctx.kernel:
+            stats, slab = gn_bwd_sums(x, g, stats, scale, bias, groups)
+            total = space.sum_(slab.clone(), "gn_sums")
+            dx, ds, dt = gn_bwd_dx(x, g, stats, scale, bias, slab, total, groups, count)
+        else:
+            slab = gn_bwd_sums_reference(x, g, scale, bias, stats)
+            total = space.sum_(slab.clone(), "gn_sums")
+            dx, ds, dt = gn_bwd_dx_reference(x, g, scale, bias, stats, slab, total, count)
+        return dx, ds.to(scale.dtype), dt.to(bias.dtype), None, None, None
 
 
 def _forward(x, scale, bias, groups, kernel: bool):
@@ -471,7 +619,8 @@ def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, gr
     the CUDA kernels for a CUDA tensor (bf16, C a multiple of 8) and runs the
     plain versions for a CPU tensor; impl='plain' runs the plain versions.
     ``space``: a SpatialGroup of which x is this rank's H slab
-    (:func:`split_group_norm`; no gradient), or None."""
+    (:func:`split_group_norm`, differentiable through
+    :class:`_SplitGroupNormReLU`), or None."""
     if impl not in IMPLS:
         raise ValueError(f"gn_relu impl must be one of {IMPLS}, got {impl!r}")
     _check_groups(x, groups)
@@ -480,9 +629,7 @@ def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, gr
     recording = torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias))
     if split(space):
         if recording:
-            raise NotImplementedError(
-                "group_norm_relu over an H-split sample has no gradient yet (the spatial "
-                "train step, ROADMAP.md queue 1)")
+            return _SplitGroupNormReLU.apply(x, scale, bias, groups, space, kernel)
         return split_group_norm(x, scale, bias, groups, space, kernel)
     if recording:
         return _GroupNormReLU.apply(x, scale, bias, groups, kernel)

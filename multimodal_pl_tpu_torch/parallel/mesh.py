@@ -110,14 +110,15 @@ def init_data_parallel(spec: str, device) -> Iterator[DataParallel]:
     """The data-parallel group of ``--mesh spec`` on ``device`` (a bare
     ``cuda``: ``cuda:LOCAL_RANK``), for the duration of the ``with`` block
     (:func:`_process_group`). Raises ValueError when the mesh's size is not
-    the world size, NotImplementedError for a ``space`` axis: the train step
-    has no H split yet."""
+    the world size, NotImplementedError for a ``space`` axis: the trainer
+    builds the data-parallel step only, as JAX's does (the spatial step is
+    ``parallel.spatial.make_spatial_train_step``)."""
     axes = parse_mesh(spec)
     if "space" in axes:
         raise NotImplementedError(
-            f"--mesh {spec}: training with a space axis (the spatial train step: halos in the "
-            "backward, GroupNorm gradients and the losses across slabs) is the next slice "
-            "(ROADMAP.md queue 1); mpl-evaluate-torch serves with space:N, train with data:N")
+            f"--mesh {spec}: mpl-train-torch trains with data:N only (ROADMAP.md queue 1); the "
+            "H-split step is parallel.spatial.make_spatial_train_step, and mpl-evaluate-torch "
+            "serves with space:N")
     if set(axes) != {"data"}:
         raise ValueError(f"--mesh {spec}: the port's mesh has one axis, data:N")
     with _process_group(spec, axes["data"], device) as device:

@@ -1,5 +1,5 @@
-"""Spatial (H-axis) model parallelism for serving, port of the serving half of
-``multimodal_pl_tpu/parallel/spatial.py``.
+"""Spatial (H-axis) model parallelism, port of
+``multimodal_pl_tpu/parallel/spatial.py``: serving and the train step.
 
 The JAX package compiles the forward with the activations sharded along H
 and lets XLA's SPMD partitioner insert the conv halo exchanges and the
@@ -28,10 +28,17 @@ operation itself:
   are cropped out;
 - the rest (weight standardization, the 1x1 convs, the skip adds) is local.
 
-Only the gradient-free forward is split: a model under ``space`` raises
-NotImplementedError while autograd records, and for the outputs that the
-serving path does not compute (the next slice, ROADMAP.md queue 1). A
-group of one rank changes nothing: the model takes today's path bit for bit.
+Each exchange carries its gradient (``torch.autograd.Function``s): a halo
+row's gradient goes back to the rank that owns the row (a repeated edge
+row's into the edge row), a crop's is the incoming gradient zero-padded,
+:meth:`SpatialGroup.gather_rows` (the whole tensor on every rank, for the
+refiner and the discriminator) takes the rank's own rows, and
+:meth:`SpatialGroup.sum` (the losses' sums over the voxels) passes the
+gradient through unchanged on each rank, since every rank computes the
+same loss from the sum; GroupNorm's gradient sums its per-channel sums over
+the ranks (``ops/gn_relu.py``). :func:`make_spatial_train_step` is the train
+step on top (``train/step.py``). A group of one rank changes nothing: the
+model and the step take today's path bit for bit.
 
 The split must be even at every level: N must divide H / 16
 (:func:`check_divisible`, ValueError before any work). The JAX package's
@@ -40,7 +47,10 @@ GSPMD pads uneven shards instead.
 :class:`SpatialSlidingWindowPredictor` is the counterpart of the JAX
 ``SlidingWindowPredictor(tile_sharding=spatial_sharding(mesh))``.
 ``exchanges`` counts the halo exchanges, the crops and the statistics
-gathers by kind and shape.
+gathers by kind and shape, and the train step's exchanges: the gathers and
+sums of the losses, and in the backward the halo gradients ('halo_bwd'),
+the crops' ('crop_bwd'), the GroupNorm sums ('gn_sums') and the segmenter's
+gradient sum ('grad_sum').
 """
 
 from __future__ import annotations
@@ -56,13 +66,16 @@ import torch.distributed as dist
 
 from multimodal_pl_tpu_torch.infer.sliding import _FLIPS, SlidingWindowPredictor
 from multimodal_pl_tpu_torch.ops.gn_relu import merge_moments
+from multimodal_pl_tpu_torch.train.step import TrainStep
 
 H_AXIS = 2      # of an NDHWC tensor (JAX _SPATIAL_AXES["H"])
 EDGES = (None, "zero", "repeat")
 DEPTH = 16      # the U-Net's total stride: every level's slab must be whole
 
 # ("halo", edge, lo, hi, slab shape, dtype), ("crop", shape, start, rows,
-# dtype, with an add) or ("stats", shape) -> calls
+# dtype, with an add), ("stats", shape), ("gather" | "sum" | "gn_sums" |
+# "grad_sum", shape, dtype) and the backward's ("halo_bwd", ...) and
+# ("crop_bwd", ...) -> calls
 exchanges: collections.Counter = collections.Counter()
 
 
@@ -79,8 +92,9 @@ class SpatialGroup:
     each exchange, copy and gather on a CUDA tensor appends (tag, start
     event, end event) to it, tags 'exchange' (boundary rows gathered),
     'attach' (the halo copy in), 'crop' (the copy out, with the skip add
-    after an upsample), 'stats' (GroupNorm moments gathered) and 'merge' (the
-    predictor's all_reduce of its accumulators)."""
+    after an upsample), 'stats' (GroupNorm moments gathered), 'merge' (the
+    predictor's all_reduce of its accumulators), and in the train step
+    'gather', 'sum' and 'exchange_bwd' (the halo gradients sent back)."""
 
     group: object
     rank: int
@@ -110,15 +124,68 @@ class SpatialGroup:
         all_gather of every rank's boundary rows. At a global edge ``edge``
         attaches zeros ('zero'), the edge row repeated ('repeat') or nothing
         (None). Returns (the extended slab, contiguous; the number of rows
-        attached below)."""
+        attached below). Differentiable in x (:class:`_HaloRows`): the
+        gradient of each attached row goes back to the rank that owns the
+        row, which adds it to its boundary row; a repeated edge row's
+        gradient adds into the edge row, a zero row's goes nowhere."""
         if edge not in EDGES:
             raise ValueError(f"halo edge must be one of {EDGES}, got {edge!r}")
         h = x.shape[H_AXIS]
         if lo > h or hi > h:
             raise ValueError(f"halo of {lo}, {hi} rows exceeds the slab's {h}")
-        with _span(self, "exchange", x.device):
-            rows = _all_gather(torch.cat([x[:, :, :hi], x[:, :, h - lo:]], H_AXIS), self)
-        r, n = self.rank, self.world
+        ext = _HaloRows.apply(x, self, lo, hi, edge)
+        return ext, (lo if self.rank > 0 or edge is not None else 0)
+
+    def crop_rows(self, y: torch.Tensor, start: int, rows: int,
+                  add: torch.Tensor | None = None) -> torch.Tensor:
+        """Rows [start, start + rows) of y's H axis, contiguous (the slab's
+        rows of an output computed on a halo-extended slab), plus ``add``
+        (of the cropped shape) if given, in the same pass. Differentiable
+        (:class:`_CropRows`): y's gradient is the incoming one at those
+        rows and zero elsewhere; ``add``'s is the incoming one."""
+        exchanges[("crop", tuple(y.shape), start, rows, str(y.dtype)[6:], add is not None)] += 1
+        with _span(self, "crop", y.device):
+            return _CropRows.apply(y, self, start, rows, add)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's H slab (axis 2) of t, joined in rank order: the whole
+        tensor on every rank. Differentiable (:class:`_GatherRows`) for a
+        loss that every rank computes alike from the whole tensor: the
+        gradient of this rank's slab is the whole gradient's rows of the
+        slab, with no sum over the ranks."""
+        exchanges[("gather", tuple(t.shape), str(t.dtype)[6:])] += 1
+        return _GatherRows.apply(t, self)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of t over the ranks (one all_reduce), the same bits on
+        every rank. Differentiable (:class:`_GroupSum`) for a loss that every
+        rank computes alike from the sum: the backward is the identity on
+        each rank (each rank's partial reaches the sum once), not a second
+        all_reduce, which would count the loss once per rank."""
+        exchanges[("sum", tuple(t.shape), str(t.dtype)[6:])] += 1
+        return _GroupSum.apply(t, self)
+
+    def sum_(self, t: torch.Tensor, kind: str) -> torch.Tensor:
+        """t summed over the ranks in place (one all_reduce, no autograd),
+        counted under ``kind``."""
+        exchanges[(kind, tuple(t.shape), str(t.dtype)[6:])] += 1
+        with _span(self, "sum", t.device):
+            dist.all_reduce(t, group=self.group)
+        return t
+
+
+class _HaloRows(torch.autograd.Function):
+    """:meth:`SpatialGroup.halo_rows` with its gradient: the backward sends
+    each attached row's gradient to the rank that owns the row (one
+    all_gather of every rank's halo gradients, counted as 'halo_bwd') and
+    adds the neighbours' into this slab's boundary rows."""
+
+    @staticmethod
+    def forward(ctx, x, space, lo, hi, edge):
+        h = x.shape[H_AXIS]
+        with _span(space, "exchange", x.device):
+            rows = _all_gather(torch.cat([x[:, :, :hi], x[:, :, h - lo:]], H_AXIS), space)
+        r, n = space.rank, space.world
 
         def edge_rows(k: int, at: int):
             if edge == "zero":
@@ -129,20 +196,80 @@ class SpatialGroup:
 
         below = ([rows[r - 1][:, :, hi:]] if r > 0 else edge_rows(lo, 0)) if lo else []
         above = ([rows[r + 1][:, :, :hi]] if r < n - 1 else edge_rows(hi, h - 1)) if hi else []
-        with _span(self, "attach", x.device):
+        with _span(space, "attach", x.device):
             ext = torch.cat(below + [x] + above, H_AXIS)
         exchanges[("halo", edge, lo, hi, tuple(x.shape), str(x.dtype)[6:])] += 1
-        return ext, (lo if below else 0)
+        ctx.space, ctx.lo, ctx.hi, ctx.edge, ctx.h = space, lo, hi, edge, h
+        ctx.below = ext.shape[H_AXIS] - h - (above[0].shape[H_AXIS] if above else 0)
+        return ext
 
-    def crop_rows(self, y: torch.Tensor, start: int, rows: int,
-                  add: torch.Tensor | None = None) -> torch.Tensor:
-        """Rows [start, start + rows) of y's H axis, contiguous (the slab's
-        rows of an output computed on a halo-extended slab), plus ``add``
-        (of the cropped shape) if given, in the same pass."""
-        exchanges[("crop", tuple(y.shape), start, rows, str(y.dtype)[6:], add is not None)] += 1
-        with _span(self, "crop", y.device):
-            out = y[:, :, start:start + rows]
-            return out.contiguous() if add is None else out + add
+    @staticmethod
+    def backward(ctx, g):
+        space, lo, hi, edge, h, nb = ctx.space, ctx.lo, ctx.hi, ctx.edge, ctx.h, ctx.below
+        r, n = space.rank, space.world
+        g_below, gx, g_above = g[:, :, :nb], g[:, :, nb:nb + h], g[:, :, nb + h:]
+        gx = gx.clone()
+        # rows this rank attached from a neighbour go back to it: the rows
+        # above to rank r + 1 (its first hi rows), the rows below to rank
+        # r - 1 (its last lo rows); edges send zeros
+        send_up = g_above if r < n - 1 else g.new_zeros((*g.shape[:2], hi, *g.shape[3:]))
+        send_down = g_below if r > 0 else g.new_zeros((*g.shape[:2], lo, *g.shape[3:]))
+        with _span(space, "exchange_bwd", g.device):
+            got = _all_gather(torch.cat([send_up, send_down], H_AXIS), space)
+        exchanges[("halo_bwd", edge, lo, hi, tuple(gx.shape), str(g.dtype)[6:])] += 1
+        if r > 0 and hi:
+            gx[:, :, :hi] += got[r - 1][:, :, :hi]
+        if r < n - 1 and lo:
+            gx[:, :, h - lo:] += got[r + 1][:, :, hi:]
+        if edge == "repeat":
+            if r == 0 and lo:
+                gx[:, :, :1] += g_below.sum(H_AXIS, keepdim=True)
+            if r == n - 1 and hi:
+                gx[:, :, h - 1:] += g_above.sum(H_AXIS, keepdim=True)
+        return gx, None, None, None, None
+
+
+class _CropRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, space, start, rows, add):
+        ctx.space, ctx.shape, ctx.start, ctx.rows = space, y.shape, start, rows
+        ctx.has_add = add is not None
+        out = y[:, :, start:start + rows]
+        return out.clone(memory_format=torch.contiguous_format) if add is None else out + add
+
+    @staticmethod
+    def backward(ctx, g):
+        gy = g.new_zeros(ctx.shape)
+        gy[:, :, ctx.start:ctx.start + ctx.rows] = g
+        exchanges[("crop_bwd", tuple(ctx.shape), ctx.start, ctx.rows, str(g.dtype)[6:],
+                   ctx.has_add)] += 1
+        return gy, None, None, None, (g if ctx.has_add else None)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, space):
+        ctx.space, ctx.h = space, t.shape[H_AXIS]
+        with _span(space, "gather", t.device):
+            return torch.cat(list(_all_gather(t, space).unbind(0)), H_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, h = ctx.space.rank, ctx.h
+        return g[:, :, r * h:(r + 1) * h].contiguous(), None
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, space):
+        out = t.clone()
+        with _span(space, "sum", t.device):
+            dist.all_reduce(out, group=space.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 @contextlib.contextmanager
@@ -197,6 +324,43 @@ def merge_group_stats(partials: torch.Tensor, space: SpatialGroup, count: float)
     (``ops.gn_relu.merge_moments``, the order of the kernel's merge). No host
     sync."""
     return merge_moments(space.gather(partials, "stats"), count)
+
+
+def spatial_batch(batch: dict, space: SpatialGroup) -> dict:
+    """This rank's part of a train-step batch: its H slab of image (B, D, H,
+    W, 1), label (B, D, H, W) and catlas (C-1, D, H, W); sup_mask and label_t
+    whole."""
+    return {k: put_spatial(v, space) if k in ("image", "label", "catlas") else v
+            for k, v in batch.items()}
+
+
+def make_spatial_train_step(model, refiner, disc, cfg, space: SpatialGroup):
+    """The counterpart of the JAX ``make_spatial_train_step(model, refiner,
+    disc, cfg, mesh)``: the whole train step (``train.step.TrainStep``) with
+    each sample's H axis split over the ranks of ``space``, for B = 1
+    patches too large for one card. ``model`` is the segmenter built with
+    ``space``; every rank calls the step with the same state and its
+    :func:`spatial_batch` of the same batch, and gets the same new state and
+    metrics, those of the single-device step up to the order of sums. A
+    group of one rank is ``TrainStep`` itself. Under a split the production
+    configuration runs (``deep_up=True``); ``deep_up=False`` and ``remat``
+    raise NotImplementedError (ROADMAP.md queue 1). Each call raises
+    ValueError before any work unless the split is even at every level
+    (:func:`check_divisible`)."""
+    if getattr(model, "space", None) != space:
+        raise ValueError("make_spatial_train_step: the model was not built with this "
+                         "SpatialGroup (pass space=... to its constructor)")
+    return SpatialTrainStep(model, refiner, disc, cfg, space=space)
+
+
+class SpatialTrainStep(TrainStep):
+    """``TrainStep`` with ``space`` that checks the split of each batch
+    (:func:`check_divisible`) before any work."""
+
+    def summed_grads(self, state, batch, weight_feature):
+        x, n = batch["image"], self.space.world
+        check_divisible((x.shape[1], x.shape[H_AXIS] * n, x.shape[3]), self.space)
+        return super().summed_grads(state, batch, weight_feature)
 
 
 def make_spatial_apply(model: torch.nn.Module, space: SpatialGroup) -> Callable:

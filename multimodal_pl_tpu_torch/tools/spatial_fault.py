@@ -20,6 +20,16 @@ repository root:
 
 (about a minute with the build); the numbers also go to
 ``OUTDIR/spatial_fault.json`` (default ``chiprun_out``).
+
+Two planted faults of the spatial train step's backward
+(``parallel.spatial.make_spatial_train_step``), each a ``prepare(step,
+space)`` for ``tools/spawn.py`` ``sp_step``: :func:`drop_halo_grads` (a halo
+row's gradient never returned to the rank that owns the row) and
+:func:`loss_counted_per_rank` (the losses' sums over the ranks by
+``torch.distributed.nn.functional.all_reduce``, whose backward all-reduces
+the gradient again: each rank's slab gets the gradient of N copies of the
+loss). ``tests/test_torch_port_spatial_step.py`` and ``chip_smoke.py`` phase
+16 show that their steps miss the step's tolerances.
 """
 
 from __future__ import annotations
@@ -60,6 +70,43 @@ def zero_low_halo(net, space, rank: int = 1, module: str = "layer0.0"):
 
     block._halo = halo
     return net
+
+
+def drop_halo_grads(step=None, space=None):
+    """The halo exchange's backward keeps each attached row's gradient on
+    the rank that attached it: no rank adds its neighbours' gradients to
+    its boundary rows (the exchange itself still runs, so the ranks stay in
+    step; a repeated edge row's gradient still adds into the edge row).
+    Returns the undo."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    real = spatial._HaloRows.backward
+
+    def backward(ctx, g):
+        real(ctx, g)
+        r, n, nb, h = ctx.space.rank, ctx.space.world, ctx.below, ctx.h
+        gx = g[:, :, nb:nb + h].clone()
+        if ctx.edge == "repeat" and r == 0 and ctx.lo:
+            gx[:, :, :1] += g[:, :, :nb].sum(2, keepdim=True)
+        if ctx.edge == "repeat" and r == n - 1 and ctx.hi:
+            gx[:, :, h - 1:] += g[:, :, nb + h:].sum(2, keepdim=True)
+        return gx, None, None, None, None
+
+    spatial._HaloRows.backward = staticmethod(backward)
+    return lambda: setattr(spatial._HaloRows, "backward", staticmethod(real))
+
+
+def loss_counted_per_rank(step=None, space=None):
+    """``SpatialGroup.sum`` by ``torch.distributed.nn.functional.all_reduce``:
+    its backward sums the incoming gradient over the ranks again. Returns
+    the undo."""
+    import torch.distributed.nn.functional as dnn
+
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    real = spatial.SpatialGroup.sum
+    spatial.SpatialGroup.sum = lambda self, t: dnn.all_reduce(t, group=self.group)
+    return lambda: setattr(spatial.SpatialGroup, "sum", real)
 
 
 def _keep_outputs(net, levels) -> dict:

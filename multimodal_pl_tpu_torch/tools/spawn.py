@@ -17,8 +17,8 @@ tensors; a rank moves what it needs to its device).
 The rank functions below: the data-parallel train step on each rank's
 batch (with the kernels' launch counts), the token EMA over a group, the
 Engine's reduction, the sharded predictor, the trainer CLI's ``main``, the
-H-split (``space``) forward and predictor, the evaluator CLI's ``main``, and
-a list of such calls in one spawn. :func:`states_unequal` lists the leaves
+H-split (``space``) forward, predictor and train step, the evaluator CLI's
+``main``, and a list of such calls in one spawn. :func:`states_unequal` lists the leaves
 in which two train states differ; :func:`reference_step` is
 the in-process reference of the data-parallel step: per-batch gradients
 averaged as ``(g0 + g1) / 2``, the updates and guards of the step, the token
@@ -93,7 +93,9 @@ def _launch_counts() -> dict:
             "fold": Counter(norm.fold_launches), "resize": Counter(resize.launches),
             "resize_backward": Counter(resize.bwd_launches),
             "gn_moments": Counter(gn_relu.moments_launches),
-            "gn_apply": Counter(gn_relu.apply_launches)}
+            "gn_apply": Counter(gn_relu.apply_launches),
+            "gn_bwd_sums": Counter(gn_relu.bwd_sums_launches),
+            "gn_bwd_dx": Counter(gn_relu.bwd_dx_launches)}
 
 
 def _reset_launch_counts() -> None:
@@ -360,6 +362,122 @@ def sp_predict(model_kwargs, weights, volumes, tile, runs, device="cpu",
             spans[run_key] = {k: v / len(volumes) if k.endswith("_ms") else v // len(volumes)
                               for k, v in span_ms(space.spans).items()}
     return (outs if dist.get_rank() == 0 else None), same, launches, secs, spans
+
+
+def sp_step(cfg, state, batch, lr, wf, device="cpu", prepare=None, peak=False):
+    """Rank r: one spatial train step (``make_spatial_train_step`` over the
+    default group as a SpatialGroup) from ``state`` on this rank's
+    ``spatial_batch`` of ``batch``, on ``device``; ``prepare(step, space)``,
+    if given, first (``tools/spatial_fault.py`` plants its faults so; what it
+    returns, if anything, is called after the step to undo it).
+    Returns (new state on the CPU, metrics as floats, the kernels' launch
+    counts, the exchanges by kind and shape, and with ``peak`` this rank's
+    peak GiB (CUDA; NaN on the CPU) and wall ms (synchronized) of a second
+    step from the same state, the one whose calls are counted)."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+    from multimodal_pl_tpu_torch.train.state import build_models
+
+    device = _on(device)
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    model, refiner, disc = (m.to(device) for m in build_models(cfg, space=space))
+    step = spatial.make_spatial_train_step(model, refiner, disc, cfg, space)
+    undo = prepare(step, space) if prepare is not None else None
+    part = {k: v.to(device) for k, v in spatial.spatial_batch(batch, space).items()}
+    state = state.to(device)
+    lr, wf = torch.as_tensor(lr, device=device), torch.as_tensor(wf, device=device)
+    cuda = device.type == "cuda"
+    if peak:  # a first step builds what later ones reuse; the second is measured
+        step(state, part, lr, wf)
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()
+    spatial.reset_exchanges()
+    t0 = time.perf_counter()
+    new, metrics = step(state, part, lr, wf)
+    if peak:
+        if cuda:
+            torch.cuda.synchronize(device)
+        measured = (torch.cuda.max_memory_allocated(device) / 2**30 if cuda else float("nan"),
+                    (time.perf_counter() - t0) * 1e3)
+    out = (_cpu(new), {k: float(v) for k, v in metrics.items()}, _launch_counts(),
+           Counter(spatial.exchanges))
+    if undo is not None:
+        undo()
+    return out + measured if peak else out
+
+
+def sp_grads(cfg, state, batch, wf, device="cpu", prepare=None, float64=False):
+    """Rank r: the gradient pass of the spatial train step
+    (``TrainStep.summed_grads``: the segmenter's gradients summed over the
+    ranks) from ``state`` on this rank's ``spatial_batch`` of ``batch``;
+    ``prepare`` as in :func:`sp_step`. ``float64``: the step in double
+    precision (state, batch and every f32 cast of the step, through
+    ``Tensor.float``; ``cfg`` a plain route). Returns (total loss,
+    {'params.' / 'rparams.' + leaf: gradient on the CPU, f32 or f64})."""
+    import dataclasses
+
+    from multimodal_pl_tpu_torch.parallel import spatial
+    from multimodal_pl_tpu_torch.train.state import build_models, map_state
+
+    device = _on(device)
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    real_float, default = torch.Tensor.float, torch.get_default_dtype()
+    if float64:
+        torch.Tensor.float = lambda self, *a, **k: self.double()
+        torch.set_default_dtype(torch.float64)
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float64)
+        state = map_state(lambda t: t.double() if t.is_floating_point() else t, state)
+        batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    try:
+        model, refiner, disc = (m.to(device) for m in build_models(cfg, space=space))
+        step = spatial.make_spatial_train_step(model, refiner, disc, cfg, space)
+        undo = prepare(step, space) if prepare is not None else None
+        part = {k: v.to(device) for k, v in spatial.spatial_batch(batch, space).items()}
+        total, (gp, gr), _ = step.summed_grads(state.to(device), part,
+                                                    torch.as_tensor(wf, device=device))
+        keep = (lambda g: g.detach().cpu()) if float64 else (lambda g: g.detach().float().cpu())
+        out = (float(total), {**{"params." + k: keep(g) for k, g in gp.items()},
+                              **{"rparams." + k: keep(g) for k, g in gr.items()}})
+        if undo is not None:
+            undo()
+    finally:
+        torch.Tensor.float = real_float
+        torch.set_default_dtype(default)
+    return out
+
+
+def sp_exchange_grads(x, cases):
+    """Rank r: each differentiable exchange of a SpatialGroup over the
+    default group on this rank's H slab of ``x``, and the gradient that
+    reaches the slab from a loss sum(out * w) (w: the case's weights of this
+    rank's output, or of the whole output when every rank computes the same
+    loss). Cases: ('halo', lo, hi, edge, ws) with ws[r] the weights of rank
+    r's extended slab; ('crop', start, rows, ws, adds): the crop of rows
+    [start, start + rows) of the slab plus adds[r], and the gradients of
+    both; ('gather', w); ('sum', w): the sum over the ranks of the slab's sum
+    over H. Returns the gradients in case order."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    r = space.rank
+    out = []
+    for case in cases:
+        xs = spatial.put_spatial(x, space).requires_grad_(True)
+        kind = case[0]
+        if kind == "halo":
+            _, lo, hi, edge, ws = case
+            y, w, inputs = space.halo_rows(xs, lo, hi, edge)[0], ws[r], (xs,)
+        elif kind == "crop":
+            _, start, rows, ws, adds = case
+            add = adds[r].clone().requires_grad_(True)
+            y, w, inputs = space.crop_rows(xs, start, rows, add), ws[r], (xs, add)
+        elif kind == "gather":
+            y, w, inputs = space.gather_rows(xs), case[1], (xs,)
+        else:
+            y, w, inputs = space.sum(xs.sum(spatial.H_AXIS)), case[1], (xs,)
+        out.append(torch.autograd.grad((y * w).sum(), inputs))
+    return out
 
 
 def sp_halo_merge(x, cases, groups: int):

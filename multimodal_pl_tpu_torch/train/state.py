@@ -85,14 +85,15 @@ def token_dims_for(cfg: StepConfig) -> Dict[str, int]:
     return {"t1": 4 * cfg.base, "t2": 2 * cfg.base, "t3": cfg.base}
 
 
-def build_models(cfg: StepConfig, generator: torch.Generator | None = None):
+def build_models(cfg: StepConfig, generator: torch.Generator | None = None, space=None):
     """The (segmenter, refiner, discriminator) triple for a StepConfig, drawn
-    in that order from ``generator`` (default: seed 0)."""
+    in that order from ``generator`` (default: seed 0); the segmenter built
+    with ``space`` (a SpatialGroup, for the spatial train step)."""
     g = generator or torch.Generator().manual_seed(0)
     impls = dict(conv_impl=cfg.conv_impl, gn_impl=cfg.gn_impl)
     model = UNet3DFEAM(layers=cfg.layers, num_classes=cfg.num_classes,
                        weight_std=cfg.weight_std, deep_up=cfg.deep_up, base=cfg.base,
-                       remat=cfg.remat, generator=g, **impls)
+                       remat=cfg.remat, generator=g, space=space, **impls)
     refiner = RefinerUNet3D(num_classes=2, weight_std=cfg.weight_std,
                             init_filter=cfg.refiner_filter, in_channel=2, generator=g, **impls)
     disc = (NormStyleDiscriminator(ndf=cfg.disc_ndf, depth=cfg.disc_depth, generator=g)

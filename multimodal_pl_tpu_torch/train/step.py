@@ -30,6 +30,21 @@ loss and the total loss are averaged after its backward; the token EMA sums
 its statistics over the ranks. Each average is one ``all_reduce`` of a flat
 buffer per dtype, divided by the world size (``pmean``). With ``group=None``
 no collective runs and the step is the single-device one.
+
+Spatial parallelism (``space``, a SpatialGroup of which the segmenter was
+built with the same; ``parallel.spatial.make_spatial_train_step``): every
+rank holds one H slab of the batch's image, label and atlas and the whole
+state. The segmenter runs on the slab (its halos, crops and GroupNorms carry
+their gradients across the slabs); every sum over the voxels in the losses
+and the metrics is the slab's, summed over the ranks, so every rank
+computes the whole loss; sample 0's organ probabilities, atlas and labels
+are gathered whole, and the refiner and the discriminator run on them on
+every rank alike (their losses and gradients are replicated: the gather's
+backward takes the rank's own rows, without a sum). The segmenter's
+gradients are slab parts, summed over the ranks (one ``all_reduce`` per
+dtype) before the guard; the refiner's and the discriminator's are not. The
+token EMA sums its class statistics over the ranks. A group of one is the
+single-device step.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from multimodal_pl_tpu_torch.infer.metrics import organ_scores, refiner_organ_sc
 from multimodal_pl_tpu_torch.losses.compose import refine_loss, segmentation_loss
 from multimodal_pl_tpu_torch.losses.gan import smooth_cross_entropy
 from multimodal_pl_tpu_torch.models.tokens import agreement_mask, renew_tokens
+from multimodal_pl_tpu_torch.ops.norm import split
 from multimodal_pl_tpu_torch.train.state import (
     StepConfig,
     TrainState,
@@ -98,6 +114,12 @@ def tree_apply(trees, fn):
     return [{k: next(out) for k in ks} for ks in keys]
 
 
+def tree_sum(trees, space, kind: str):
+    """Each leaf of name -> tensor dicts summed over the ranks of a
+    SpatialGroup, one ``all_reduce`` per dtype, counted under ``kind``."""
+    return tree_apply(trees, lambda flat: space.sum_(flat, kind))
+
+
 def tree_mean(trees, group):
     """Each leaf of name -> tensor dicts averaged over the ranks of ``group``
     (``pmean``), one ``all_reduce`` per dtype."""
@@ -120,16 +142,36 @@ class TrainStep:
     group: a data-parallel process group. Every rank passes its own batch
     and the same state, and gets the same new state; the loss and the
     discriminator's loss are the ranks' means, the other metrics this
-    rank's."""
+    rank's.
 
-    def __init__(self, model, refiner, disc, cfg: StepConfig, group=None):
+    space: a SpatialGroup (the segmenter's): every rank passes its H slab
+    of image, label and catlas (``parallel.spatial.spatial_batch``) and the
+    same state, and gets the same new state and metrics."""
+
+    def __init__(self, model, refiner, disc, cfg: StepConfig, group=None, space=None):
         self.model, self.refiner, self.disc, self.cfg = model, refiner, disc, cfg
-        self.group = group
+        self.group, self.space = group, space
+        if split(space):
+            if group is not None:
+                raise NotImplementedError("the train step splits H or the batch, not both")
+            if not cfg.deep_up:
+                raise NotImplementedError(
+                    "the spatial train step with deep_up=False (the attention maps feed the "
+                    "DeepStyleDiscriminator at their own scales): ROADMAP.md queue 1")
+            if cfg.remat:
+                raise NotImplementedError("the spatial train step with remat: ROADMAP.md queue 1")
 
-    def _disc(self, dparams, probs, catlas, attns):
-        """Discriminator logits over all organs of sample 0."""
+    def _organs(self, logits32):
+        """Sample 0's organ probabilities (C-1, D, H, W) in the compute
+        dtype, differentiable; under a split gathered whole on every rank."""
+        organs = _organs_first(torch.softmax(logits32, dim=-1)[0]).to(self.cfg.compute_dtype)
+        return self.space.gather_rows(organs) if split(self.space) else organs
+
+    def _disc(self, dparams, organs, catlas, attns):
+        """Discriminator logits over all organs of sample 0 from its organ
+        probabilities ``organs`` (C-1, D, H, W)."""
         cfg = self.cfg
-        din = (_organs_first(probs[0]).to(cfg.compute_dtype), catlas.to(cfg.compute_dtype))
+        din = (organs, catlas.to(cfg.compute_dtype))
         if cfg.deep_up:
             return functional_call(self.disc, dparams, (din,))
         amaps = [torch.softmax(a.float(), -1)[0].movedim(-1, 0)[..., None] for a in attns]
@@ -138,7 +180,8 @@ class TrainStep:
     def losses(self, params, rparams, state: TrainState, batch, weight_feature):
         """(total loss, aux) of the segmenter and refiner, differentiable in
         params and rparams."""
-        cfg = self.cfg
+        cfg, space = self.cfg, self.space
+        splits = split(space)
         nfg = cfg.num_classes - 1
         images = batch["image"].to(cfg.compute_dtype)
         labels = batch["label"].long()
@@ -153,16 +196,23 @@ class TrainStep:
 
         # refiner: a gradient pass over the supervised labeled-modality organs
         # (tlist, gathered to a static K rows) and a gradient-free pass over
-        # the other rows for the pseudo-labels (train:277-291)
-        probs0 = torch.softmax(logits32[0].detach(), dim=-1)
-        organ_probs = _organs_first(probs0).to(cfg.compute_dtype)
+        # the other rows for the pseudo-labels (train:277-291); under a split
+        # on sample 0's whole probabilities, atlas and labels
+        if splits:
+            organs = self._organs(logits32)
+            organ_probs = organs.detach()
+            catlas_c, cmask0 = space.gather_rows(catlas_c), space.gather_rows(cmask[:1])
+        else:
+            probs0 = torch.softmax(logits32[0].detach(), dim=-1)
+            organ_probs = _organs_first(probs0).to(cfg.compute_dtype)
+            cmask0 = cmask
         tlist_w = label_t * sup_mask[1:]
         k = min(cfg.refine_grad_organs, nfg)
         order = torch.argsort(-tlist_w, stable=True)  # tlist rows first, ties as JAX
         sup_idx, rest_idx = order[:k], order[k:]
         rlogits_sup = functional_call(
             self.refiner, rparams, ((organ_probs[sup_idx], catlas_c[sup_idx]),)).float()
-        r_loss = refine_loss(rlogits_sup, cmask, tlist_w[sup_idx], aug_mask=cfg.augmask,
+        r_loss = refine_loss(rlogits_sup, cmask0, tlist_w[sup_idx], aug_mask=cfg.augmask,
                              organ_ids=sup_idx + 1)
         if k < nfg:
             with torch.no_grad():
@@ -176,19 +226,25 @@ class TrainStep:
             rlogits = rlogits_sup.detach()[torch.argsort(sup_idx)]
 
         # deep_outs=(): the reference training script passes deep_out=[] (train:305)
-        seg = segmentation_loss(logits32, cmask, sup_mask, (), attns, refiner_logits=rlogits,
-                                label_d=sup_mask[1:], weight_feature=weight_feature)
+        h = logits.shape[2]
+        own = rlogits[:, :, space.rank * h:(space.rank + 1) * h] if splits else rlogits
+        seg = segmentation_loss(logits32, cmask, sup_mask, (), attns, refiner_logits=own,
+                                label_d=sup_mask[1:], weight_feature=weight_feature,
+                                space=space)
 
         # generator term: the frozen discriminator passes gradient to the
         # logits and takes none itself (train:323-347)
         dfrozen = {n: p.detach() for n, p in state.dparams.items()}
-        d_out = self._disc(dfrozen, torch.softmax(logits32, dim=-1), catlas_c, attns)
+        if not splits:
+            organs = self._organs(logits32)
+        d_out = self._disc(dfrozen, organs, catlas_c, attns)
         loss_d = _weighted_ce_const(d_out, 1.0 - label_t, 1)
 
         total = seg + r_loss + loss_d * cfg.weight_gan
         aux = {"logits": logits32.detach(), "attns": [a.detach() for a in attns],
                "feats": feats, "cmask": cmask, "rlogits": rlogits, "seg_loss": seg.detach(),
-               "refine_loss": r_loss.detach(), "gan_g_loss": loss_d.detach()}
+               "refine_loss": r_loss.detach(), "gan_g_loss": loss_d.detach(),
+               "organs": organs.detach(), "catlas": catlas_c}
         return total, aux
 
     def grads(self, state: TrainState, batch, weight_feature):
@@ -211,19 +267,28 @@ class TrainStep:
         """(loss, grads) of the discriminator CE on detached inputs over all
         organs (train:349-368)."""
         dparams = {n: p.detach().requires_grad_(True) for n, p in state.dparams.items()}
-        d_out = self._disc(dparams, torch.softmax(aux["logits"], dim=-1),
-                           batch["catlas"], aux["attns"])
+        d_out = self._disc(dparams, aux["organs"], aux["catlas"], aux["attns"])
         d_loss = smooth_cross_entropy(d_out, batch["label_t"].long())
         g = torch.autograd.grad(d_loss, list(dparams.values()), allow_unused=True)
         return d_loss.detach(), {n: torch.zeros_like(p) if gi is None else gi
                                  for (n, p), gi in zip(dparams.items(), g)}
 
-    def __call__(self, state: TrainState, batch, lr, weight_feature):
-        cfg = self.cfg
-        nfg = cfg.num_classes - 1
+    def summed_grads(self, state: TrainState, batch, weight_feature):
+        """:meth:`grads` with the gradients every rank applies: averaged over
+        a data-parallel group; under an H split the segmenter's slab parts
+        summed over the ranks (the refiner's are whole on every rank)."""
         total, (gp, gr), aux = self.grads(state, batch, weight_feature)
         if self.group is not None:
             gp, gr = tree_mean([gp, gr], self.group)
+        if split(self.space):
+            (gp,) = tree_sum([gp], self.space, "grad_sum")
+        return total, (gp, gr), aux
+
+    def __call__(self, state: TrainState, batch, lr, weight_feature):
+        cfg = self.cfg
+        nfg = cfg.num_classes - 1
+        space = self.space
+        total, (gp, gr), aux = self.summed_grads(state, batch, weight_feature)
 
         # non-finite-gradient guard: a bad bf16 step is skipped, not applied
         g_ok = all_finite(gp) & all_finite(gr)
@@ -248,14 +313,15 @@ class TrainStep:
         # class-token EMA (train:382-391), guarded like the updates
         fmask = agreement_mask(aux["cmask"], aux["logits"].argmax(dim=-1), batch["sup_mask"])
         new_tokens = renew_tokens(state.tokens, aux["feats"], fmask, cfg.token_alpha,
-                                  self.group)
+                                  space.group if split(space) else self.group)
         tokens = select_tree(all_finite(new_tokens), new_tokens, state.tokens)
 
         new_state = state.replace(params=params, rparams=rparams, dparams=dparams,
                                   momentum=momentum, tokens=tokens, step=state.step + 1)
         labels = batch["label"].long()
-        dice = organ_scores(aux["logits"], labels, nfg)[0]
-        rdice = refiner_organ_scores(aux["rlogits"], labels[:1], nfg)[0]
+        dice = organ_scores(aux["logits"], labels, nfg, space)[0]
+        labels0 = space.gather_rows(labels[:1]) if split(space) else labels[:1]
+        rdice = refiner_organ_scores(aux["rlogits"], labels0, nfg)[0]
         supw = batch["sup_mask"][1:].float()
         metrics = {
             "loss": total,

@@ -730,3 +730,79 @@ def test_space_two_gloo_ranks_on_one_card(cuda_device):
         assert modes == {"fold": 10, "relu": 17}
         assert sum(launches["gn_relu"].values()) == sum(launches["fold"].values()) == 0
         assert sum(launches["conv3x3"].values()) == 14 and sum(launches["resize"].values()) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,groups", [((1, 8, 6, 16), 32, 16), ((1, 4, 4, 12), 256, 16),
+                                            ((11, 4, 6, 8), 24, 4), ((1, 16, 48, 96), 32, 16)])
+def test_gn_bwd_slab_entry_points_match_plain(cuda_device, shape, c, groups):
+    """The slab backward's two kernels (gn_bwd_sums_bf16, gn_bwd_dx_bf16)
+    vs their plain twins on one slab of two, from the slabs' moments: the
+    sums and ds, dt within rel 1e-3, dx within 1e-2 * max|plain|; and on a
+    whole sample (its own sums, gn_relu_fwd_bf16's statistics) they give
+    gn_relu_bwd_bf16's grid route bit for bit."""
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn((*shape, c), generator=g) * 2 + 1).to(cuda_device, torch.bfloat16)
+    dy = torch.randn((*shape, c), generator=g).to(cuda_device, torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    bi = (0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    slabs, dys = ([t.contiguous() for t in v.chunk(2, dim=2)] for v in (x, dy))
+    moments = torch.stack([gn_relu.gn_moments(s, groups) for s in slabs])
+    count = slabs[0].numel() // (shape[0] * groups)
+    stats_p = gn_relu.merge_moments_reference(moments, float(count))
+    parts = [gn_relu.gn_bwd_sums(s, d, moments, sc, bi, groups) for s, d in zip(slabs, dys)]
+    sums_p = [gn_relu.gn_bwd_sums_reference(s, d, sc, bi, stats_p) for s, d in zip(slabs, dys)]
+    for (_, k), p in zip(parts, sums_p):
+        assert _rel(k, p) <= 1e-3
+    total, total_p = parts[0][1] + parts[1][1], sums_p[0] + sums_p[1]
+    dx, ds, dt = gn_relu.gn_bwd_dx(slabs[0], dys[0], parts[0][0], sc, bi, parts[0][1], total,
+                                   groups, 2 * count)
+    dxp, dsp, dtp = gn_relu.gn_bwd_dx_reference(slabs[0], dys[0], sc, bi, stats_p, sums_p[0],
+                                                total_p, 2 * count)
+    assert (dx.float() - dxp.float()).abs().max() <= 1e-2 * dxp.float().abs().max()
+    assert _rel(ds, dsp) <= 1e-3 and _rel(dt, dtp) <= 1e-3
+    _, own = gn_relu.gn_relu_forward(x, sc, bi, groups, path="grid")
+    want = gn_relu.gn_relu_backward(x, dy, sc, bi, own, groups, path="grid")
+    stats, sums = gn_relu.gn_bwd_sums(x, dy, own, sc, bi, groups)
+    assert torch.equal(stats, own)
+    got = gn_relu.gn_bwd_dx(x, dy, stats, sc, bi, sums, sums, groups, 2 * count)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_spatial_step_two_gloo_ranks_on_one_card(cuda_device):
+    """The spatial train step on two gloo ranks on cuda:0 (bf16, kernels,
+    a 32 x 64 x 32 patch, tiny_step_config): both ranks' new states bit-equal,
+    the loss within rel 3e-2 of the one-rank kernel step's; every segmenter
+    GroupNorm -> ReLU on the slab kernels forward (gn_moments, gn_apply) and
+    backward (gn_bwd_sums, gn_bwd_dx, as many), the refiner's on the unsplit
+    ones."""
+    from multimodal_pl_tpu_torch.tools import spawn
+    from multimodal_pl_tpu_torch.train.state import (
+        build_models,
+        create_train_state,
+        tiny_step_config,
+    )
+    from multimodal_pl_tpu_torch.train.step import make_train_step
+
+    cfg = tiny_step_config(compute_dtype=torch.bfloat16)
+    p = (32, 64, 32)
+    g = torch.Generator().manual_seed(2)
+    batch = {"image": torch.randn((1, *p, 1), generator=g).to(torch.bfloat16),
+             "label": torch.randint(0, 14, (1, *p), generator=g).to(torch.uint8),
+             "catlas": torch.rand((13, *p), generator=g).to(torch.bfloat16),
+             "sup_mask": torch.tensor([0.0] * 5 + [1.0] + [0.0] * 8),
+             "label_t": torch.tensor([0, 0, 0, 0, 1, 1, 1, 1, 1, 0, 1, 1, 1.0])}
+    state = create_train_state(torch.Generator().manual_seed(0), cfg)
+    ranks = spawn.run(spawn.sp_step, 2, cfg, state, batch, 5e-4, 0.05, "cuda:0", timeout=300)
+    (s0, m0, calls, _), (s1, _, _, _) = ranks
+    assert spawn.states_unequal(s0, s1) == []
+    step = make_train_step(*(m.to(cuda_device) for m in build_models(cfg)), cfg)
+    _, m = step(state.to(cuda_device), {k: v.to(cuda_device) for k, v in batch.items()},
+                torch.tensor(5e-4, device=cuda_device), torch.tensor(0.05, device=cuda_device))
+    assert abs(m0["loss"] - float(m["loss"])) <= 3e-2 * abs(float(m["loss"]))
+    sums, dxs = (sum(calls[k].values()) for k in ("gn_bwd_sums", "gn_bwd_dx"))
+    relu = sum(n for k, n in calls["gn_apply"].items() if k[0] == "relu")
+    assert sums == dxs == relu == sum(calls["gn_moments"].values()) > 0
+    assert sum(calls["gn_relu_backward"].values()) > 0  # the refiner's, unsplit

@@ -271,20 +271,33 @@ def test_space_splits_h_only():
 
 
 def test_unported_parts_raise_under_space():
-    """aux=True, the other ablations, GroupNorm alone and autograd raise
-    NotImplementedError under a split; the Baseline builds."""
+    """What the spatial slices have not ported raises NotImplementedError
+    under a split, naming ROADMAP.md: aux=True with deep_up=False (its maps
+    feed the discriminator at their own scales), the feam2 token
+    pre-update, remat while autograd records, the train step with
+    deep_up=False or remat, the other ablations and GroupNorm alone; the
+    Baseline builds."""
+    from multimodal_pl_tpu_torch.train.state import build_models, tiny_step_config
+    from multimodal_pl_tpu_torch.train.step import TrainStep
+
     space = _Ranks(0, 2)
-    model = UNet3DFEAM(num_classes=NC, space=space)
     x = torch.zeros((1, 16, 16, 16, 1))
     with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x)
+        UNet3DFEAM(num_classes=NC, space=space)(x)  # deep_up=False
+    feam2 = UNet3DFEAM(num_classes=NC, deep_up=True, token_update="pre", space=space)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
+        feam2(x, mask=torch.zeros((1, 16, 16, 16)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x, aux=False)  # autograd would record
+        UNet3DFEAM(num_classes=NC, deep_up=True, remat=True, space=space)(x, aux=False)
+    for kw in ({"deep_up": False}, {"remat": True}):
+        cfg = tiny_step_config(num_classes=NC, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TrainStep(*build_models(cfg), cfg, space=space)
     for cls in (UNet3DDeepSup, UNet3DEAM, UNet3DDynHead):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(space=space)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.layer0[0].gn1(torch.zeros((1, 2, 2, 2, 32)))
+        UNet3DFEAM(num_classes=NC, space=space).layer0[0].gn1(torch.zeros((1, 2, 2, 2, 32)))
     assert UNet3DBaseline(space=space).space is space
 
 
