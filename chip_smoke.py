@@ -180,8 +180,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bf16 tiles: 9 held-out cases (3 valid, 6 test), each case's label map of
    the kernel route agreeing with the plain versions' on bf16 tiles on
    >= 0.95 of the voxels (phase 8's limit, two routes at one dtype; the
-   agreement of both with the f32 route printed), the tables printed; then
-   every kernel at every shape either path launched against its plain
+   agreement of both with the f32 route printed), the tables printed; the
+   route probes of tools/route_probe.py from the 6-epoch state at the
+   campaign's shape (a few seconds): every kernel call of one kernel-route
+   gradient step against its plain version on its own inputs, the signed
+   bias |mean(kernel - f32)| / rms(f32) <= 1e-3 for each of the nine
+   kernels, and the refiner's gradient-free pass over 8 batches, kernel
+   against plain bf16, its pooled foreground shift within 5 standard errors;
+   then every kernel at every shape either path launched against its plain
    version, timed, as in phases 2 and 6;
 16. the spatial train step (parallel/spatial.py make_spatial_train_step:
    a B = 1 patch's H axis split over ranks through the forward, the losses
@@ -206,8 +212,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    peak GiB and wall ms against one rank's, at 64 x 192 x 192 and at
    1 x 128^3 (gloo stages through the host: no scaling figure); then
    gn_bwd_sums_bf16 and gn_bwd_dx_bf16 against their plain twins at every
-   slab shape (sums, ds and dt rel 1e-3; dx 1e-2 * max|plain|), and every
-   other kernel at every slab shape the step launched, timed.
+   slab shape (sums, ds and dt rel 1e-3; dx 1e-2 * max|plain|; the sums in
+   one launch where one cluster holds the sample's blocks, else two), and
+   every other kernel at every slab shape the step launched, timed.
 
 The kernels line gives per path the calls of a volume or a step (for the
 campaign, of its whole training run and of its kernel-route evaluation)
@@ -2566,6 +2573,19 @@ def phase_spatial(dev, results, weights, vol):
 CAMPAIGN_EPOCHS, CAMPAIGN_CHUNK = 6, 3   # chunks of epochs 0-3 and 3-6
 CAMPAIGN_TILE = (64, 96, 96)            # the campaign's patch and evaluation tile
 CAMPAIGN_AGREE = 0.95                   # kernel vs plain label maps per case (phase 8's)
+# phase 15's route probes from the 6-epoch state (tools/route_probe.py): every
+# kernel call of one gradient step at the campaign's shape on its own inputs,
+# |mean(kernel - f32)| / rms(f32) <= CAMPAIGN_BIAS per kernel, shape and output
+# (clean calls read <= 2e-5 at epochs 0-1200 of a campaign, the plain route's
+# bf16 upsample gradient up to 8.2e-4; a +0.1%-of-rms shift reads 1e-3); the
+# refiner's gradient-free pass over CAMPAIGN_REST_BATCHES batches, kernel
+# against plain bf16, the pooled foreground-probability shift within
+# CAMPAIGN_REST_Z of its standard error (clean |z| <= 1.6 at those states; a
+# +0.5%-of-rms plant at its last GroupNorm -> ReLU reads 262 at tiny widths)
+CAMPAIGN_BIAS, CAMPAIGN_REST_Z, CAMPAIGN_REST_BATCHES = 1e-3, 5.0, 8
+ROUTE_PROBE_KERNELS = sorted(["conv3x3 train_fwd", "conv3x3 train_dx", "conv3x3 fused",
+                              "conv3x3 prologue_off", "fold", "gn_relu forward",
+                              "gn_relu backward", "resize3d forward", "resize3d backward"])
 
 
 def make_campaign(root: str) -> str:
@@ -2726,7 +2746,9 @@ def phase_campaign(dev, results, root):
     resize_fwd, resize_bwd = phase_resize(dev, results,
                                           set(train_calls["resize"]) | set(kcalls["resize"]),
                                           set(train_calls["resize_backward"]))
+    probe = campaign_route_probe(dev, root, snap)
     results["campaign"] = {
+        "route_probe": probe,
         "chunks": chunks, "train_s": train_s, "patches_per_sec": pps, "validation": vals,
         "train_calls": train_counts, "eval_calls": eval_counts, "label_agreement": agree,
         "label_agreement_vs_f32": agree_f32,
@@ -2735,6 +2757,49 @@ def phase_campaign(dev, results, root):
     return {"train": train_calls, "eval": kcalls, "conv_train": train_table,
             "conv": conv_table, "gn_relu": gn_table, "gn_relu_backward": gn_bwd_table,
             "fold": fold_table, "resize": resize_fwd, "resize_backward": resize_bwd}
+
+
+def campaign_route_probe(dev, root, snap) -> dict:
+    """Phase 15's route probes (``tools/route_probe.py``) from the latest
+    checkpoint in ``snap`` on the campaign's batches: the signed bias of
+    every kernel call of one kernel-route gradient step against its plain
+    version (<= CAMPAIGN_BIAS), and the refiner's gradient-free pass,
+    kernel against plain bf16 (pooled |z| <= CAMPAIGN_REST_Z). The
+    consistency term at its full weight, whatever the epoch."""
+    from multimodal_pl_tpu_torch.tools import route_probe as R
+    from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    t0 = time.perf_counter()
+    cfg, seed = R.campaign_config(root, CAMPAIGN_EPOCHS)
+    cfgs = R.route_configs(cfg)
+    steps = R.make_steps({k: cfgs[k] for k in ("kernel", "plain")}, dev)
+    state = restore_checkpoint(latest_checkpoint(snap)).to(dev)
+    batches = R.campaign_batches(root, cfgs["kernel"], CAMPAIGN_REST_BATCHES, seed, dev,
+                                 CAMPAIGN_TILE)
+    wf = torch.tensor(cfg.weight_feature_max, device=dev)
+    rows = R.kernel_bias(steps["kernel"], state, batches[:1], wf)
+    worst = max(rows, key=lambda r: abs(r["bias_kernel"]))
+    inputs = [R.rest_inputs(steps["kernel"], state, b, wf) for b in batches]
+    rest = R.rest(steps, state, inputs, pairs=[("kernel", "plain")])["kernel-plain"]["all"]
+    out = {"kernel_rows": len(rows), "kernels": sorted({r["kernel"] for r in rows}),
+           "worst_bias": {k: worst[k] for k in ("kernel", "shape", "output", "bias_kernel",
+                                                 "bias_plain", "err_kernel", "err_plain")},
+           "rest_kernel_vs_plain": rest, "seconds": time.perf_counter() - t0}
+    print(f"[15] route probes from the {CAMPAIGN_EPOCHS}-epoch state at B = 3 x {CAMPAIGN_TILE} "
+          f"({out['seconds']:.1f} s): {len(rows)} (kernel, shape, output) rows of one gradient "
+          f"step, worst |mean(kernel - f32)| / rms(f32) {abs(worst['bias_kernel']):.2e} "
+          f"({worst['kernel']} {worst['output']} {worst['shape']}; plain "
+          f"{worst['bias_plain']:.2e}; limit {CAMPAIGN_BIAS}); refiner gradient-free pass over "
+          f"{len(batches)} batches, kernel vs plain bf16: foreground shift "
+          f"{rest['prob']['mean']:.3e} (z {rest['prob']['z']:.2f}, limit {CAMPAIGN_REST_Z}), "
+          f"dice {rest['dice']:.5f}", flush=True)
+    check(out["kernels"] == ROUTE_PROBE_KERNELS, f"the route probe saw kernels {out['kernels']}")
+    check(abs(worst["bias_kernel"]) <= CAMPAIGN_BIAS, f"kernel call biased: {out['worst_bias']}")
+    check(abs(rest["prob"]["z"]) <= CAMPAIGN_REST_Z,
+          f"the refiner's gradient-free pass shifts on the kernel route: {rest}")
+    del steps, state, batches, inputs
+    torch.cuda.empty_cache()
+    return out
 
 
 def campaign_entries(run) -> list:
@@ -2841,8 +2906,9 @@ def phase_gn_bwd_split(dev, results, keys, n=SPACE_N):
         reps = 5 if x.numel() > 2 ** 26 else 20
         common = {"c": c, "groups": groups, "b": b, "dhw": [d, h, w], "slabs": n,
                   "library_ms": None}
+        one = G.sums_plan(b, d * h * w, c, G.limits(x.device.index).stats_clusters[1])[2] > 0
         rows = (
-            dict(common, kernel="gn_bwd_sums_bf16", rel=sums_rel,
+            dict(common, kernel="gn_bwd_sums_bf16", rel=sums_rel, launches_per_call=2 - one,
                  max_abs_err=(sums - sums_p).abs().max().item(),
                  ms=time_ms(lambda: G.gn_bwd_sums(x, dy, moments, sc, bi, groups), reps),
                  plain_ms=time_ms(lambda: G.gn_bwd_sums_reference(x, dy, sc, bi, stats_p), reps),
@@ -2854,7 +2920,8 @@ def phase_gn_bwd_split(dev, results, keys, n=SPACE_N):
                  plain_ms=time_ms(lambda: G.gn_bwd_dx_reference(
                      x, dy, sc, bi, stats_p, sums_p, total_p, n * count), reps),
                  **bound(0.0, 6 * x.numel() + 4 * (2 * b * groups + 4 * b * c + 4 * c))))
-        print(f"  gn_bwd_sums/dx B={b} C={c:3d} G={groups:2d} @{d}x{h}x{w} from {n} slabs: sums "
+        print(f"  gn_bwd_sums/dx B={b} C={c:3d} G={groups:2d} @{d}x{h}x{w} from {n} slabs "
+              f"({2 - one} + 1 launches): sums "
               f"rel {sums_rel:.2e}, dx {dx_err:.3g} (max|p| {dx_max:.3g}), ds/dt rel "
               f"{dsdt_rel:.2e}  kernels {rows[0]['ms']:.3f} + {rows[1]['ms']:.3f} ms  plain "
               f"{rows[0]['plain_ms']:.3f} + {rows[1]['plain_ms']:.3f} ms  bound "

@@ -139,6 +139,25 @@ def get_arguments() -> argparse.ArgumentParser:
     return p
 
 
+def step_config(args):
+    """The StepConfig that the parsed flags ``args`` train with."""
+    import torch
+
+    from multimodal_pl_tpu_torch.train.state import StepConfig
+
+    impl = {True: "kernel", False: "plain"}
+    return StepConfig(
+        num_classes=args.num_classes, num_epochs=args.num_epochs, deep_up=args.deep_up,
+        augmask=args.augmask, weight_gan=args.weight_gan, momentum=args.momentum,
+        weight_decay=args.weight_decay, pretrain_epoch=args.pretrain_epoch,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        conv_impl=impl[args.pallas_k2], gn_impl=impl[args.pallas_gn],
+        train_refiner=args.train_refiner, weight_std=args.weight_std, base=args.model_base,
+        layers=tuple(int(x) for x in args.model_layers.split(",")),
+        refiner_filter=args.refiner_filter, disc_ndf=args.disc_ndf,
+        disc_depth=args.disc_depth, remat=args.remat)
+
+
 def main(argv=None):
     """Returns the final train state (on every rank under ``--mesh``)."""
     args = get_arguments().parse_args(argv)
@@ -158,11 +177,7 @@ def _train(args, device, dp):
     from multimodal_pl_tpu_torch.data.device_cache import DeviceDataPipeline
     from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
     from multimodal_pl_tpu_torch.train.loop import LoopConfig, train_loop
-    from multimodal_pl_tpu_torch.train.state import (
-        StepConfig,
-        build_models,
-        create_train_state,
-    )
+    from multimodal_pl_tpu_torch.train.state import build_models, create_train_state
     from multimodal_pl_tpu_torch.train.step import make_train_step
     from multimodal_pl_tpu_torch.utils.prng import seedfix
 
@@ -171,17 +186,7 @@ def _train(args, device, dp):
 
     d, h, w = map(int, args.input_size.split(","))
     generator = seedfix(args.seed)
-    impl = {True: "kernel", False: "plain"}
-    scfg = StepConfig(
-        num_classes=args.num_classes, num_epochs=args.num_epochs, deep_up=args.deep_up,
-        augmask=args.augmask, weight_gan=args.weight_gan, momentum=args.momentum,
-        weight_decay=args.weight_decay, pretrain_epoch=args.pretrain_epoch,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        conv_impl=impl[args.pallas_k2], gn_impl=impl[args.pallas_gn],
-        train_refiner=args.train_refiner, weight_std=args.weight_std, base=args.model_base,
-        layers=tuple(int(x) for x in args.model_layers.split(",")),
-        refiner_filter=args.refiner_filter, disc_ndf=args.disc_ndf,
-        disc_depth=args.disc_depth, remat=args.remat)
+    scfg = step_config(args)
     state = create_train_state(generator, scfg)
     if args.reload_from_checkpoint:
         path = args.reload_path or latest_checkpoint(args.snapshot_dir)

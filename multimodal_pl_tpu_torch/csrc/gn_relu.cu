@@ -641,40 +641,9 @@ __device__ void dx_rows(const __nv_bfloat16* x, const __nv_bfloat16* dy, __nv_bf
   }
 }
 
-// Grid route, launch 1: per block, per-channel sums of gy and gy * xhat;
-// the blocks of a cluster add theirs in rank order (distributed shared
-// memory) and rank 0 writes them to partial[b][cluster][2][C].
-__global__ void __launch_bounds__(NT, 3)
-gn_bwd_sums_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-                   const float* __restrict__ stats, const float* __restrict__ scale,
-                   const float* __restrict__ bias, float* __restrict__ partial, long long S, int C,
-                   int groups, long long rows_per_block) {
-  __shared__ float red[RED_FLOATS];
-  __shared__ Sums sred[NT];
-  __shared__ float part[2][MAX_C];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = int(cluster.num_blocks());
-  const int b = blockIdx.y;
-  Chan p;
-  load_chan_stats(p, stats + (long long)b * 2 * groups, scale, bias,
-                  (threadIdx.x % (C / 8)) * 8, C / groups, groups);
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  block_sums(x + (long long)b * S * C, dy + (long long)b * S * C, r0,
-             rows_end(r0, rows_per_block, S), C, p, red, sred, part[0], part[1]);
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    float* out = partial + (((long long)b * (gridDim.x / q) + blockIdx.x / q) * 2) * C;
-    for (int c = threadIdx.x; c < C; c += NT) {
-      const Sums t = add_sums(q, [&](int j) {
-        const float* pj = cluster.map_shared_rank(&part[0][0], j);
-        return Sums{pj[c], pj[MAX_C + c]};
-      });
-      out[c] = t.a;
-      out[C + c] = t.b;
-    }
-  }
-  cluster.sync();  // no block leaves while rank 0 still reads its sums
-}
+// Grid route, launch 1: gn_bwd_sums_kernel<false, false> (below) with the
+// forward's (mean, inv), the clusters' partials into
+// partial[b][cluster][2][C].
 
 // Grid route, launch 2, grid (dx_nblk, B + 1): blocks of row B - 1 and
 // below merge their sample's partials (fixed order), form P and Q per group
@@ -924,33 +893,90 @@ gn_apply_fold_kernel(const float* __restrict__ moments, int nslab,
 //
 // The backward's only cross-slab quantities are the per-(sample, channel)
 // sums of gy and gy * xhat over the whole sample (P and Q of each group are
-// formed from them). gn_bwd_sums_bf16 writes the slab's (grid route, launch
-// 1, then one block per sample merging its blocks' partials in the fixed
-// order of gn_bwd_dx_kernel); the caller sums them over the ranks;
-// gn_bwd_dx_bf16 forms P and Q from the sums of the whole sample and writes
-// dx, and ds, dt from the slab's own sums (the slab's part of the parameter
-// gradients, which the caller sums with the others).
+// formed from them). gn_bwd_sums_bf16 writes the slab's; the caller sums
+// them over the ranks; gn_bwd_dx_bf16 forms P and Q from the sums of the
+// whole sample and writes dx, and ds, dt from the slab's own sums (the
+// slab's part of the parameter gradients, which the caller sums with the
+// others).
+//
+// gn_bwd_sums_bf16 merges the slabs' moments in each sums block's prologue
+// (gn_apply_bf16's merge; a few KB from L2), so no launch precedes it.
+// Where one cluster holds all of a sample's blocks, its rank 0 adds the
+// blocks' sums and writes the final ones: one launch. Else every cluster's
+// rank 0 writes its partial and a second launch adds the partials per
+// sample. Either way the additions run in gn_relu_bwd_bf16's grid-route
+// order (blocks in clusters of STATS_CLUSTER, then the clusters), so a whole
+// sample's sums are that route's bits.
 
-// Per-group (mean, inv) of each sample into stats[b][2][groups], from the
-// slabs' moments (nslab > 0, merged as gn_apply_bf16 merges them) or copied
-// from (mean, inv) (nslab == 0); one block per sample.
-__global__ void __launch_bounds__(NT)
-gn_slab_stats_rows_kernel(const float* __restrict__ moments, int nslab, float* __restrict__ stats,
-                          long long S, int C, int groups, float eps) {
-  __shared__ float st[2][MAX_C];
-  const int b = blockIdx.x;
-  slab_group_stats(moments, nslab, gridDim.x, b, S, C, groups, eps, &st[0][0]);
-  for (int g = threadIdx.x; g < groups; g += NT) {
-    stats[(long long)b * 2 * groups + g] = st[0][g];
-    stats[(long long)b * 2 * groups + groups + g] = st[1][g];
+// The sums launch of both routes. Grid (nblk rounded up to the cluster, B),
+// clusters of q blocks. Block (i, b) takes the group statistics of sample
+// b: SLAB, from slab_group_stats (nslab > 0: the slabs' (mean, M2) merged;
+// nslab == 0: (mean, inv) copied), block (0, b) writing them to
+// stats[b][2][groups]; else moments is the forward's (B, 2, groups) (mean,
+// inv), read from global memory (through the shared buffer that the sums
+// reuse, ptxas spills 56 bytes instead of 20 and the train step's GroupNorm
+// backward runs 2% slower), and stats is unused. The block sums gy and gy * xhat over its rows_per_block
+// rows; rank 0 of each cluster adds its blocks' sums in rank order. FINAL:
+// one cluster per sample, whose sum is the sample's, into out[b][2][C]. Else
+// into out[b][cluster][2][C], partials for gn_bwd_dx_kernel or
+// gn_bwd_slab_merge_kernel.
+template <bool SLAB, bool FINAL>
+__global__ void __launch_bounds__(NT, 3)
+gn_bwd_sums_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                   const float* __restrict__ moments, int nslab, const float* __restrict__ scale,
+                   const float* __restrict__ bias, float* __restrict__ stats,
+                   float* __restrict__ out, long long S, int C, int groups, float eps,
+                   long long rows_per_block) {
+  __shared__ float red[RED_FLOATS];
+  __shared__ Sums sred[NT];
+  __shared__ float part[2][MAX_C];  // first the groups' (mean, inv), then the block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = int(cluster.num_blocks());
+  const int b = blockIdx.y;
+  Chan p;
+  const int c0 = (threadIdx.x % (C / 8)) * 8, cpg = C / groups;
+  if constexpr (SLAB) {
+    slab_group_stats(moments, nslab, gridDim.y, b, S, C, groups, eps, &part[0][0]);
+    if (blockIdx.x == 0)
+      for (int g = threadIdx.x; g < groups; g += NT) {
+        stats[(long long)b * 2 * groups + g] = part[0][g];
+        stats[(long long)b * 2 * groups + groups + g] = part[1][g];
+      }
+    load_affine(p, scale, bias, c0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      p.mean[j] = part[0][(c0 + j) / cpg];
+      p.inv[j] = part[1][(c0 + j) / cpg];
+    }
+    __syncthreads();  // every thread holds its statistics before part is reused
+  } else {
+    load_chan_stats(p, moments + (long long)b * 2 * groups, scale, bias, c0, cpg, groups);
   }
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  block_sums(x + (long long)b * S * C, dy + (long long)b * S * C, r0,
+             rows_end(r0, rows_per_block, S), C, p, red, sred, part[0], part[1]);
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    float* dst = FINAL ? out + (long long)b * 2 * C
+                       : out + (((long long)b * (gridDim.x / q) + blockIdx.x / q) * 2) * C;
+    for (int c = threadIdx.x; c < C; c += NT) {
+      const Sums t = add_sums(q, [&](int j) {
+        const float* pj = cluster.map_shared_rank(&part[0][0], j);
+        return Sums{pj[c], pj[MAX_C + c]};
+      });
+      dst[c] = t.a;
+      dst[C + c] = t.b;
+    }
+  }
+  cluster.sync();  // no block leaves while rank 0 still reads its sums
 }
 
-// One block per sample: its blocks' partials partial[b][i][2][C] summed in
-// sum_blocks's order into sums[b][2][C] = (sum gy, sum gy * xhat).
+// The second launch where the clusters are several: one block per sample,
+// its clusters' partials partial[b][i][2][C] summed in sum_blocks's order
+// into sums[b][2][C] = (sum gy, sum gy * xhat).
 __global__ void __launch_bounds__(NT)
-gn_bwd_slab_sums_kernel(const float* __restrict__ partial, float* __restrict__ sums, int C,
-                        int nblk) {
+gn_bwd_slab_merge_kernel(const float* __restrict__ partial, float* __restrict__ sums, int C,
+                         int nblk) {
   __shared__ Sums red[NT];
   __shared__ float tot[2][MAX_C];
   const int b = blockIdx.x;
@@ -1092,7 +1118,8 @@ int gn_relu_limits(int* max_cluster, int* smem_bytes, int* stats_clusters) {
     cfg.numAttrs = 1;
     err = int(cudaOccupancyMaxActiveClusters(&stats_clusters[0], gn_relu_stats_kernel, &cfg));
     if (!err)
-      err = int(cudaOccupancyMaxActiveClusters(&stats_clusters[1], gn_bwd_sums_kernel, &cfg));
+      err = int(cudaOccupancyMaxActiveClusters(&stats_clusters[1],
+                                               gn_bwd_sums_kernel<false, false>, &cfg));
     if (!err)
       err = int(cudaOccupancyMaxActiveClusters(&stats_clusters[2], gn_fold_stats_kernel, &cfg));
     if (err) return err;
@@ -1198,8 +1225,9 @@ int gn_relu_bwd_bf16(const void* x, const void* dy, const void* scale, const voi
     return int(cudaErrorInvalidValue);
   float* partial = static_cast<float*>(workspace);
   const int grid = stats_blocks(nblk);
-  const int err = launch_cluster(gn_bwd_sums_kernel, dim3(grid, B, 1), STATS_CLUSTER, 0, st, xb,
-                                 gb, stb, sc, bi, partial, S, C, groups, rows);
+  const int err = launch_cluster(gn_bwd_sums_kernel<false, false>, dim3(grid, B, 1),
+                                 STATS_CLUSTER, 0, st, xb, gb, stb, 0, sc, bi,
+                                 static_cast<float*>(nullptr), partial, S, C, groups, 0.0f, rows);
   if (err) return err;
   gn_bwd_dx_kernel<<<dim3(dx_nblk, B + 1), NT, 0, st>>>(xb, gb, stb, sc, bi, partial, dxb, dsdtb,
                                                          S, C, groups, B, grid / STATS_CLUSTER,
@@ -1289,30 +1317,41 @@ int gn_apply_bf16(const void* x, const void* moments, int nslab, const void* sca
 // moments (nslab > 0: (nslab, B, 2, groups) (mean, M2) merged in rank order;
 // nslab == 0: (B, 2, groups) (mean, inv)), writes stats (B, 2, groups) f32
 // = the (mean, inv) it used, and sums (B, 2, C) f32 = this slab's (sum gy,
-// sum gy * xhat) per sample and channel (sums blocks of `rows` rows, nblk of
-// them, in clusters of STATS_CLUSTER; workspace f32 B * nblk * 2 * C).
-// Three launches. Returns a cudaError_t as int.
+// sum gy * xhat) per sample and channel, from sums blocks of `rows` rows
+// (nblk of them). cluster == STATS_CLUSTER: one launch, one cluster per
+// sample, nblk <= STATS_CLUSTER; workspace unused. cluster == 0: two
+// launches, the blocks in clusters of STATS_CLUSTER writing partials to
+// workspace (f32 B * nblk * 2 * C), then their merge. Returns a cudaError_t
+// as int.
 int gn_bwd_sums_bf16(const void* x, const void* dy, const void* moments, int nslab,
                      const void* scale, const void* bias, void* stats, void* sums,
                      void* workspace, int B, long long S, int C, int groups, float eps,
-                     long long rows, int nblk, void* stream) {
+                     long long rows, int nblk, int cluster, void* stream) {
   if (bad_shape(B, S, C, groups) || nslab < 0 || bad_grid(S, rows, nblk))
     return int(cudaErrorInvalidValue);
+  if (cluster != 0 && (cluster != STATS_CLUSTER || nblk > cluster))
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(dy);
+  const float* mo = static_cast<const float*>(moments);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
   float* stb = static_cast<float*>(stats);
+  if (cluster > 0) {
+    return launch_cluster(gn_bwd_sums_kernel<true, true>, dim3(cluster, B, 1), cluster, 0, st, xb,
+                          gb, mo, nslab, sc, bi, stb, static_cast<float*>(sums), S, C, groups, eps,
+                          rows);
+  }
+  if (workspace == nullptr) return int(cudaErrorInvalidValue);
   float* partial = static_cast<float*>(workspace);
-  gn_slab_stats_rows_kernel<<<B, NT, 0, st>>>(static_cast<const float*>(moments), nslab, stb, S,
-                                              C, groups, eps);
-  int err = int(cudaGetLastError());
-  if (err) return err;
   const int grid = stats_blocks(nblk);
-  err = launch_cluster(gn_bwd_sums_kernel, dim3(grid, B, 1), STATS_CLUSTER, 0, st,
-                       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-                       static_cast<const float*>(stb), static_cast<const float*>(scale),
-                       static_cast<const float*>(bias), partial, S, C, groups, rows);
+  const int err = launch_cluster(gn_bwd_sums_kernel<true, false>, dim3(grid, B, 1), STATS_CLUSTER,
+                                 0, st, xb, gb, mo, nslab, sc, bi, stb, partial, S, C, groups, eps,
+                                 rows);
   if (err) return err;
-  gn_bwd_slab_sums_kernel<<<B, NT, 0, st>>>(partial, static_cast<float*>(sums), C,
-                                            grid / STATS_CLUSTER);
+  gn_bwd_slab_merge_kernel<<<B, NT, 0, st>>>(partial, static_cast<float*>(sums), C,
+                                             grid / STATS_CLUSTER);
   return int(cudaGetLastError());
 }
 

@@ -181,7 +181,7 @@ def _lib():
                                   + [i32, i64, i32, i32, f32, i64, i32, ptr])
     lib.gn_apply_bf16.restype = i32
     lib.gn_bwd_sums_bf16.argtypes = ([ptr] * 3 + [i32] + [ptr] * 5
-                                     + [i32, i64, i32, i32, f32, i64, i32, ptr])
+                                     + [i32, i64, i32, i32, f32, i64, i32, i32, ptr])
     lib.gn_bwd_sums_bf16.restype = i32
     lib.gn_bwd_dx_bf16.argtypes = [ptr] * 9 + [i32, i64, i32, i32, i64, i64, i32, ptr]
     lib.gn_bwd_dx_bf16.restype = i32
@@ -221,6 +221,16 @@ def stats_plan(b: int, s: int, c: int, clusters: int):
     per_sample = STATS_CLUSTER * max(1, clusters // b)
     rows = max(-(-BLOCK_VECS[0] // (c // 8)), -(-s // per_sample))
     return rows, -(-s // rows)
+
+
+def sums_plan(b: int, s: int, c: int, clusters: int):
+    """gn_bwd_sums_bf16's (rows per block, blocks per sample, cluster):
+    ``stats_plan``'s blocks (``clusters``: co-resident clusters of the
+    backward's statistics launch), in one launch through one cluster of
+    STATS_CLUSTER per sample where they fit one, else cluster 0 (two
+    launches: the clusters' partials, then their merge)."""
+    rows, nblk = stats_plan(b, s, c, clusters)
+    return rows, nblk, STATS_CLUSTER if nblk <= STATS_CLUSTER else 0
 
 
 def cluster_plan(b: int, s: int, c: int, backward: bool, max_cluster: int, smem: int):
@@ -471,7 +481,8 @@ def gn_bwd_sums(x: torch.Tensor, dy: torch.Tensor, moments: torch.Tensor, scale:
     """The slab backward's first kernel (``gn_bwd_sums_bf16``) on CUDA
     tensors: from ``moments`` as :func:`gn_apply` takes them, (stats (B, 2,
     groups) f32, the (mean, inv) used; sums (B, 2, C) f32, this slab's sums
-    of gy and gy * xhat per sample and channel)."""
+    of gy and gy * xhat per sample and channel). One launch where
+    :func:`sums_plan` puts a sample's blocks in one cluster, else two."""
     _check_kernel_input("x", x, x)
     _check_kernel_input("dy", dy, x)
     _check_groups(x, groups)
@@ -484,15 +495,18 @@ def gn_bwd_sums(x: torch.Tensor, dy: torch.Tensor, moments: torch.Tensor, scale:
                          f"({b}, 2, {groups}) on {x.device}, got {moments.dtype} "
                          f"{tuple(moments.shape)} on {moments.device}")
     scale, bias = (t.to(device=x.device, dtype=torch.float32).contiguous() for t in (scale, bias))
-    rows, nblk = stats_plan(b, s, c, limits(x.device.index).stats_clusters[1])
+    rows, nblk, cluster = sums_plan(b, s, c, limits(x.device.index).stats_clusters[1])
     stats = torch.empty((b, 2, groups), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
+    workspace = None
+    if not cluster:
+        workspace = torch.empty(b * nblk * 2 * c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().gn_bwd_sums_bf16(
             x.data_ptr(), dy.data_ptr(), moments.data_ptr(), nslab, scale.data_ptr(),
-            bias.data_ptr(), stats.data_ptr(), sums.data_ptr(), workspace.data_ptr(), b, s, c,
-            groups, eps, rows, nblk, torch.cuda.current_stream().cuda_stream)
+            bias.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), b, s, c, groups, eps, rows,
+            nblk, cluster, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gn_bwd_sums launch")
     bwd_sums_launches[(c, groups, b, *x.shape[1:-1])] += 1
     return stats, sums

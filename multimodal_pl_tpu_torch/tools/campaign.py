@@ -12,7 +12,8 @@ the JAX script's. Training is ``mpl-train-torch``'s own ``main`` at
 64 x 96 x 96, B = 3.
 
     python -m multimodal_pl_tpu_torch.tools.campaign train --root ROOT [--epochs 800]
-    python -m multimodal_pl_tpu_torch.tools.campaign run --root ROOT [--epochs 2500] [--chunk 800]
+    python -m multimodal_pl_tpu_torch.tools.campaign run --root ROOT [--epochs 2500] [--chunk 800] \
+        [--until EPOCH]
 
 Both modes write the fixture first unless ``--skip_gen`` is given.
 ``train`` trains once with the JAX script's argv. ``run`` trains in chunks
@@ -22,8 +23,10 @@ checkpoint in the snapshot directory (``--reload_from_checkpoint true
 --start_epoch --stop_epoch``) and ``--num_epochs`` stays the whole horizon,
 so the LR schedule is that of an unbroken run; a chunk stops at its start +
 ``--chunk`` or at the horizon (2500 / 800: 0-800, 800-1600, 1600-2400,
-2400-2500). A chunk starts a new dataset stream (the dataset's random
-generator is seeded per process), as a chunk of the JAX runner does. The
+2400-2500); ``--until`` stops the run at an epoch, each chunk cut there
+(``--until 1200``: 0-800, 800-1200). A chunk starts a new dataset stream
+(the dataset's random generator is seeded per process), as a chunk of the
+JAX runner does. The
 epoch to resume is the latest checkpoint's step over the steps per epoch of
 the training split (19 train cases at B = 3: 6). Arguments that neither
 mode knows go to every ``mpl-train-torch`` call after its own, so they
@@ -153,23 +156,25 @@ def resume_epoch(snapshot_dir: str, per_epoch: int):
 
 def run_chunks(root: str, total: int, chunk: int, snapshot_dir: str = "",
                batch_size: int = BATCH, val_every: int = 100, extra=(),
-               train_main=None) -> list:
+               train_main=None, until: int = 0) -> list:
     """Train epochs 0 .. ``total`` in chunks of ``chunk`` epochs, each
     resumed from the latest checkpoint, through ``train_main`` (default:
-    mpl-train-torch's ``main``) with ``chunk_argv`` + ``extra``. Returns one
-    record per chunk run: start, stop, the checkpoint it resumed from, the
-    latest checkpoint after it, the step it ended at and its seconds."""
+    mpl-train-torch's ``main``) with ``chunk_argv`` + ``extra``; with
+    ``until``, stop at that epoch (the LR horizon stays ``total``). Returns
+    one record per chunk run: start, stop, the checkpoint it resumed from,
+    the latest checkpoint after it, the step it ended at and its seconds."""
     if train_main is None:
         from multimodal_pl_tpu_torch.cli.train import main as train_main
     snap = snapshot_dir or os.path.join(root, "snapshots")
     per_epoch = steps_per_epoch(root, batch_size)
+    end = min(until, total) if until else total
     records = []
     while True:
         start, resumed_from = resume_epoch(snap, per_epoch)
-        if start >= total:
-            print(f"campaign complete at epoch {start}")
+        if start >= end:
+            print(f"campaign {'complete' if end == total else 'stopped'} at epoch {start}")
             return records
-        stop = min(start + chunk, total)
+        stop = min(start + chunk, end)
         print(f"=== chunk: epochs {start} -> {stop} ===", flush=True)
         t0 = time.perf_counter()
         state = train_main(chunk_argv(root, snap, total, start, stop, batch_size, val_every)
@@ -188,6 +193,8 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=0,
                    help="the LR horizon (default: 800 for train, 2500 for run)")
     p.add_argument("--chunk", type=int, default=800, help="run: epochs per chunk")
+    p.add_argument("--until", type=int, default=0,
+                   help="run: stop at this epoch, the LR horizon staying --epochs (0: the end)")
     p.add_argument("--val_every", type=int, default=0,
                    help="validation cadence in epochs (default: 50 for train, 100 for run)")
     p.add_argument("--batch_size", type=int, default=BATCH)
@@ -207,7 +214,7 @@ def main(argv=None):
         return train_main(train_argv(args.root, snap, args.epochs or 800, args.batch_size,
                                      args.val_every or 50) + extra)
     records = run_chunks(args.root, args.epochs or 2500, args.chunk, snap, args.batch_size,
-                         args.val_every or 100, extra)
+                         args.val_every or 100, extra, until=args.until)
     for r in records:
         print(f"chunk {r['start']} -> {r['stop']}: resumed from {r['resumed_from']}, "
               f"ended at step {r['step']} ({r['checkpoint']}), {r['seconds']:.1f} s")

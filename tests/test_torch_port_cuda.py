@@ -770,6 +770,44 @@ def test_gn_bwd_slab_entry_points_match_plain(cuda_device, shape, c, groups):
         assert torch.equal(a, b)
 
 
+# the spatial step's eight slab shapes (C, groups, D, H, W): rank 0 of 2 at
+# B = 1 x 64 x 192 x 192, 35 gn_bwd_sums calls per step
+SLAB_SHAPES = [(32, 16, 64, 96, 192), (64, 16, 32, 48, 96), (128, 16, 16, 24, 48),
+               (256, 16, 8, 12, 24), (256, 16, 4, 6, 12), (128, 16, 8, 12, 24),
+               (64, 16, 16, 24, 48), (32, 16, 32, 48, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,groups,d,h,w", SLAB_SHAPES)
+def test_gn_bwd_sums_one_launch_at_the_slab_shapes(cuda_device, c, groups, d, h, w):
+    """gn_bwd_sums_bf16 at each slab shape of the spatial step: its sums
+    and statistics against the plain twin (from two slabs' moments), and on
+    a whole sample (the forward's statistics) with gn_bwd_dx_bf16
+    gn_relu_bwd_bf16's grid route bit for bit, on either of its routes: one
+    launch where sums_plan puts the sample's blocks in one cluster (the
+    4 x 6 x 12 slab), two elsewhere."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn((1, d, h, w, c), generator=g) * 2 + 1).to(cuda_device, torch.bfloat16)
+    dy = torch.randn((1, d, h, w, c), generator=g).to(cuda_device, torch.bfloat16)
+    other = (torch.randn((1, d, h, w, c), generator=g) * 2 + 1).to(cuda_device, torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    bi = (0.1 * torch.randn(c, generator=g)).to(cuda_device)
+    moments = torch.stack([gn_relu.gn_moments(t, groups) for t in (x, other)])
+    stats_p = gn_relu.merge_moments_reference(moments, float(d * h * w * (c // groups)))
+    stats, sums = gn_relu.gn_bwd_sums(x, dy, moments, sc, bi, groups)
+    assert _rel(stats, stats_p) <= 1e-5
+    assert _rel(sums, gn_relu.gn_bwd_sums_reference(x, dy, sc, bi, stats_p)) <= 1e-3
+    _, own = gn_relu.gn_relu_forward(x, sc, bi, groups, path="grid")
+    want = gn_relu.gn_relu_backward(x, dy, sc, bi, own, groups, path="grid")
+    stats, sums = gn_relu.gn_bwd_sums(x, dy, own, sc, bi, groups)
+    got = gn_relu.gn_bwd_dx(x, dy, stats, sc, bi, sums, sums, groups, d * h * w * (c // groups))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cluster = gn_relu.sums_plan(1, d * h * w, c,
+                                gn_relu.limits(cuda_device.index or 0).stats_clusters[1])[2]
+    assert cluster == (gn_relu.STATS_CLUSTER if (d, h, w) == (4, 6, 12) else 0)
+
+
 @pytest.mark.cuda
 def test_spatial_step_two_gloo_ranks_on_one_card(cuda_device):
     """The spatial train step on two gloo ranks on cuda:0 (bf16, kernels,

@@ -68,7 +68,8 @@ def test_port_imports_no_jax():
             "multimodal_pl_tpu_torch.tools.halo_p2p",
             "multimodal_pl_tpu_torch.tools.spawn",
             "multimodal_pl_tpu_torch.tools.campaign",
-            "multimodal_pl_tpu_torch.tools.campaign_eval"} <= set(got["names"]), got
+            "multimodal_pl_tpu_torch.tools.campaign_eval",
+            "multimodal_pl_tpu_torch.tools.route_probe"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
 

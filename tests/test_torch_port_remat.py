@@ -138,6 +138,23 @@ def test_gn_relu_cluster_plan_holds_all_samples(b, s, c):
         assert m * (b if backward else 1) <= max_cluster
 
 
+@pytest.mark.parametrize("c,d,h,w", [(32, 64, 96, 192), (64, 32, 48, 96), (128, 16, 24, 48),
+                                     (256, 8, 12, 24), (256, 4, 6, 12), (128, 8, 12, 24),
+                                     (64, 16, 24, 48), (32, 32, 48, 96)])
+def test_gn_bwd_sums_plan_one_launch_where_one_cluster_holds_the_sample(c, d, h, w):
+    """gn_bwd_sums_bf16's plan at the spatial step's slab shapes (B = 1),
+    for any count of co-resident clusters: stats_plan's blocks, none of them
+    empty, and one launch (a cluster of STATS_CLUSTER) exactly where the
+    sample's blocks fit one cluster, which only the 4 x 6 x 12 slab does."""
+    s = d * h * w
+    for clusters in (8, 33, 64, 132):
+        rows, nblk, cluster = gn_relu.sums_plan(1, s, c, clusters)
+        assert (rows, nblk) == gn_relu.stats_plan(1, s, c, clusters)
+        assert rows * nblk >= s > rows * (nblk - 1)
+        assert cluster == (gn_relu.STATS_CLUSTER if nblk <= gn_relu.STATS_CLUSTER else 0)
+        assert bool(cluster) == ((d, h, w) == (4, 6, 12))
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(batch=3), dict(batch=2, shape=(32, 32, 32)),
                                 dict(batch=1, base=16, refine_k=3, aug_mask=1)])
 def test_flops_copy_matches_jax(kw):
