@@ -160,9 +160,19 @@ Phases, each of which raises (non-zero exit) on any failed check:
    criteria; the spatial predictor over phase 4's volume on the two ranks:
    blended logits within rel L2 3e-2 and argmax agreement 0.95 of the
    one-rank predictor, ranks bit-equal, 3 tile batches' calls per volume,
-   s/vol (two ranks on one card over gloo: not a scaling figure); then the
-   slab entry points gn_moments_bf16 and gn_apply_bf16 against their plain
-   twins at every slab shape (statistics rel 1e-5, y 1e-2 * max|plain|, the
+   s/vol (two ranks on one card over gloo: not a scaling figure); in the
+   same spawn UNet3DDeepSup, UNet3DEAM (num_eams 3, aux=True) and
+   UNet3DDynHead split (phase 13's weights; the EAM cascade's softmax over
+   the voxels and DynHead's mean over the tile merged across the ranks):
+   ranks bit-equal, logits within rel L2 3e-2 and agreement 0.95 of the
+   one-rank kernel forward, every output (logits, deep maps, the EAM tokens
+   and attention maps) at most 1.05 times as far from an f32 forward as the
+   one-rank kernel forward's, rank 0's calls and exchanges per tile batch
+   (the trunk's, plus one moments gather and normalize per head
+   GroupNorm -> ReLU, 3 softmax merges, DynHead's one mean), the split and
+   one-rank forward ms; then the slab entry points gn_moments_bf16 and
+   gn_apply_bf16 against their plain twins at every slab shape of the FEAM
+   and the ablations (statistics rel 1e-5, y 1e-2 * max|plain|, the
    normalize given gn_relu_fwd_bf16's own statistics that kernel's y bit
    for bit), and conv3x3_gn and resize3d at the halo-extended slab shapes as
    in phase 2, all timed;
@@ -193,7 +203,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    a B = 1 patch's H axis split over ranks through the forward, the losses
    and the backward) at 64 x 192 x 192, bf16, the StepConfig defaults, from
    one seeded state and batch: over a one-rank NCCL group (space:1) the new
-   state and metrics of TrainStep bit for bit; in one spawned rank the
+   state and metrics of TrainStep bit for bit, without and with remat, and
+   TrainStep(deep_up=False) raising ValueError split or not (the JAX step
+   fails to trace it); in one spawned rank the
    gradients of the kernel, plain bf16 and plain f32 (TF32 off) steps; on
    two gloo ranks on the card (space:2) the same gradient passes split:
    ranks bit-equal, the loss within rel 3e-2 of the one-rank kernel and f32
@@ -210,7 +222,13 @@ Phases, each of which raises (non-zero exit) on any failed check:
    and gn_bwd_dx_bf16 calls as slab GroupNorms, every halo but the stem's
    returning its gradient, the calls and exchanges per step, each rank's
    peak GiB and wall ms against one rank's, at 64 x 192 x 192 and at
-   1 x 128^3 (gloo stages through the host: no scaling figure); then
+   1 x 128^3 (gloo stages through the host: no scaling figure); the same
+   with remat on the two ranks: its gradients against the split step's
+   without remat (loss rel 1e-6, every leaf rel 1e-3, phase 9's rule) and
+   phase 7's per-leaf rule, and the calls and exchanges the recompute adds
+   exactly as derived from the architecture (``remat_recompute``: 22
+   conv3x3_train forwards, 33 gn_moments and normalize gn_apply, 26 halo
+   exchanges, 16 crops, 33 statistics gathers), peak GiB and wall ms; then
    gn_bwd_sums_bf16 and gn_bwd_dx_bf16 against their plain twins at every
    slab shape (sums, ds and dt rel 1e-3; dx 1e-2 * max|plain|; the sums in
    one launch where one cluster holds the sample's blocks, else two), and
@@ -2283,16 +2301,20 @@ def slab_rows(d: int) -> int:
     return TILE[1] // SPACE_N // (TILE[0] // d)
 
 
-def spatial_entries(run) -> list:
+def spatial_entries(run, tile_calls=None, path=None) -> list:
     """The kernels-line entries of the H-split serving path (phase 14):
     rank 0's calls per volume; per-shape times at the slab shapes of one
     tile batch, summed over its calls. The conv and resize calls run on
     halo-extended slabs: their bound is that of the slab's own output rows
-    (the work the path keeps), the launched shapes' is bound_launched_ms."""
+    (the work the path keeps), the launched shapes' is bound_launched_ms.
+    With ``tile_calls`` and ``path``: the entries of that path instead (a
+    split ablation's tile batch), its launches those of the tile batch."""
     from multimodal_pl_tpu_torch.ops import conv3x3
 
-    tag = f"spatial serving --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, one card)"
-    tile_calls, vol_calls = run["tile_batch"], run["volume"]
+    tag = (f"{path or 'spatial serving'} --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, "
+           "one card)")
+    vol_calls = run["volume"] if tile_calls is None else tile_calls
+    tile_calls = run["tile_batch"] if tile_calls is None else tile_calls
 
     def conv_own(k):
         spec, cin, cout, b, d, _, w, res = k
@@ -2362,6 +2384,142 @@ def halo_copy_times(dev, exchanges) -> dict:
         del x
     torch.cuda.empty_cache()
     return out
+
+
+SPACE_ABLATIONS = ("deepsup", "eam3", "dynhead")  # phase 14: the ablations split over ranks
+# DynHead's logits are a function of its 4 x 256 pooled task features
+# (UNet3DDynHead.task_features) and of the decoder's maps, and nearly all of
+# a bf16 route's distance from f32 there comes from the pooled vector: the
+# logits' distance follows the direction of that vector's rounding error, not
+# only its size, so two routes whose pooled vectors sit equally far from f32
+# can give logits tens of percent apart in their distance from f32 (on an
+# H100, phase 14's split read 0.9997 times the one-rank forward's distance
+# at the pooled vector and 1.236 times at the logits, which sit 5.6e-3 from
+# the one-rank logits with agreement 0.99999). Phase 14 holds the 1.05 rule
+# on the pooled vector, where the split computes differently (the merged
+# GroupNorm and mean), and prints the logits' ratio; the logits keep the rel
+# L2 and agreement limits.
+
+
+def spatial_ablation_cases(dev, weights, x):
+    """Phase 14: the ablations of SPACE_ABLATIONS at full width with phase
+    13's weights (seeded, phase 3's FEAM weights on every parameter they
+    share with it), on phase 3's bf16 tile batch ``x`` (CPU): each one's
+    one-rank kernel forward and f32 forward (the plain route on the f32
+    input), every output on the CPU, and the one-rank forward's wall ms
+    (median of 3), and DynHead's pooled task features of both. Returns
+    ({name: those}, the spawn calls of their H-split kernel forwards,
+    timed, then of the split DynHead's task features)."""
+    from multimodal_pl_tpu_torch.tools import spawn
+
+    zoo, refs, calls = ablation_models(), {}, []
+    wcpu = {k: v.cpu() for k, v in weights.items()}
+    tasks = torch.tensor(ABLATION_TASKS)
+    xd = x.to(dev)
+    for name in SPACE_ABLATIONS:
+        cls, kw, _ = zoo[name]
+        net = cls(**kw, generator=torch.Generator().manual_seed(13))
+        sd = net.state_dict()
+        sd.update({k: v for k, v in wcpu.items() if k in sd and sd[k].shape == v.shape})
+        plain = cls(**kw, conv_impl="plain", gn_impl="plain")
+        for m in (net, plain):
+            m.load_state_dict(sd)
+            m.to(dev).eval()
+        args = (tasks,) if name == "dynhead" else ()
+        dargs = [a.to(dev) for a in args]
+        with torch.inference_mode():
+            refs[name] = {"one_rank": [t.float().cpu() for t in _flat(net(xd, *dargs))],
+                          "f32": [t.float().cpu() for t in _flat(plain(xd.float(), *dargs))],
+                          "one_rank_ms": wall_ms(lambda: net(xd, *dargs), 3)}
+            if name == "dynhead":
+                refs[name]["pooled"] = [m.task_features(m.encode(xin)[1]).float().cpu()
+                                        for m, xin in ((net, xd), (plain, xd.float()))]
+                pooled_call = (spawn.sp_task_features, (kw, sd, x, "cuda:0"))
+        calls.append((spawn.sp_forward, (kw, sd, x, "cuda:0", cls.__name__, True, None, args,
+                                         {})))
+        del net, plain
+        torch.cuda.empty_cache()
+    return refs, calls + [pooled_call]
+
+
+def check_spatial_ablations(refs, ranks, first) -> dict:
+    """Phase 14: the H-split ablation forwards of ``ranks`` (each rank's
+    results of the spawn from index ``first``, in SPACE_ABLATIONS' order)
+    against ``refs`` (:func:`spatial_ablation_cases`): the ranks' outputs
+    bit-equal; the logits within rel L2 3e-2 and label agreement 0.95 of the
+    one-rank kernel forward; every output (logits, deep maps, the EAM
+    cascade's tokens and attention maps) at most 1.05 times as far from the
+    f32 forward as the one-rank kernel forward's (for DynHead its pooled task
+    features in place of its logits, whose ratio is printed); rank 0's calls
+    per tile
+    batch the trunk's (18 fused + 4 prologue-off conv3x3_gn, 4 resize3d, 18
+    fold gn_apply, no unsplit gn_relu or fold call) with one gn_moments and
+    one normalize gn_apply per GroupNorm -> ReLU (the trunk's 17, DeepSup's
+    three deep heads, DynHead's gap_gn), 31 halo exchanges and 27 crops (the
+    4 stride-2 convs crop nothing), one statistics gather per gn_moments,
+    one softmax merge per EAM and DynHead's one mean.
+    Returns {name: readings} and, under 'launches', rank 0's calls."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.tools import spatial_fault
+
+    out, launches = {}, {}
+    heads = {"deepsup": 3, "eam3": 0, "dynhead": 1}
+    for i, name in enumerate(SPACE_ABLATIONS):
+        (y, calls, exchanges, spans), others = ranks[0][first + i], [r[first + i] for r in
+                                                                     ranks[1:]]
+        got = [t.float() for t in _flat(y)]
+        check(all(torch.equal(a, b) for r in others for a, b in zip(got, _flat(r[0]))),
+              f"{name}: the ranks' split outputs differ")
+        ref = refs[name]
+        crit = spatial_fault.criteria(got[0], ref["one_rank"][0], ref["f32"][0])
+        ratios = [((g - f).norm() / (o - f).norm()).item()
+                  for g, o, f in zip(got, ref["one_rank"], ref["f32"], strict=True)]
+        held = ratios
+        if name == "dynhead":
+            pooled = ranks[0][first + len(SPACE_ABLATIONS)]
+            check(all(torch.equal(pooled, r[first + len(SPACE_ABLATIONS)]) for r in ranks[1:]),
+                  "dynhead: the ranks' pooled task features differ")
+            one, f32 = ref["pooled"]
+            held = [((pooled.float() - f32).norm() / (one - f32).norm()).item()]
+        kinds = {}
+        for key, n in exchanges.items():
+            kinds[key[0]] = kinds.get(key[0], 0) + n
+        totals = {spec: sum(n for k, n in calls["conv3x3"].items() if k[0] == spec)
+                  for spec in conv3x3.SPECS}
+        gn = 17 + heads[name]
+        counts = {"conv3x3": totals, "gn_moments": sum(calls["gn_moments"].values()),
+                  "gn_apply": {m: sum(n for k, n in calls["gn_apply"].items() if k[0] == m)
+                               for m in ("fold", "relu")},
+                  "resize": sum(calls["resize"].values()),
+                  "unsplit_gn": sum(calls["gn_relu"].values()) + sum(calls["fold"].values()),
+                  "exchanges": kinds}
+        want = {"conv3x3": {conv3x3.FUSED: 18, conv3x3.PROLOGUE_OFF: 4, conv3x3.TRAIN_FWD: 0,
+                            conv3x3.TRAIN_DX: 0}, "gn_moments": 18 + gn,
+                "gn_apply": {"fold": 18, "relu": gn}, "resize": 4, "unsplit_gn": 0,
+                "exchanges": {"halo": 31, "crop": 27, "stats": 18 + gn,
+                              **({"softmax": 3} if name == "eam3" else {}),
+                              **({"mean": 1} if name == "dynhead" else {})}}
+        row = dict(crit, output_f32_ratios=ratios, held_f32_ratios=held,
+                   shapes=[list(t.shape) for t in got],
+                   calls=counts, split_forward_ms=spans["forward_ms"],
+                   one_rank_forward_ms=ref["one_rank_ms"], span_ms=spans)
+        print(f"[14] {name} split over {SPACE_N} gloo ranks, {WINDOW_BATCH}x{TILE} bf16 kernels: "
+              f"logits rel L2 vs the one-rank forward {crit['rel_l2']:.3e}, agreement "
+              f"{crit['agreement']:.5f}; each output's rel L2 to f32 / the one-rank forward's "
+              f"{[round(r, 4) for r in ratios]}"
+              + (f" (pooled task features {held[0]:.4f})" if name == "dynhead" else "")
+              + f"; forward {spans['forward_ms']:.1f} ms split "
+              f"(gloo through the host), {ref['one_rank_ms']:.1f} ms one rank; calls per tile "
+              f"batch {counts}", flush=True)
+        check(crit["rel_ok"] and crit["agree_ok"],
+              f"{name} split logits outside the serving limits: {crit}")
+        check(all(r <= spatial_fault.F32_RATIO for r in held),
+              f"{name} split outputs further from f32 than {spatial_fault.F32_RATIO} x the "
+              f"one-rank forward's: {held}")
+        check(counts == want, f"{name} split calls per tile batch {counts} != {want}")
+        out[name] = row
+        launches[name] = calls
+    return out, launches
 
 
 def phase_spatial(dev, results, weights, vol):
@@ -2455,6 +2613,7 @@ def phase_spatial(dev, results, weights, vol):
             vol).cpu()
     del single_model, plain_model
     torch.cuda.empty_cache()
+    abl_refs, abl_calls = spatial_ablation_cases(dev, weights, x)
     wcpu = {k: v.cpu() for k, v in weights.items()}
     run_key = (False, "logits", WINDOW_BATCH)
     faults = ("layer0.0", "layer4.1")  # the planted halo faults: full and 1/16 scale
@@ -2464,13 +2623,16 @@ def phase_spatial(dev, results, weights, vol):
                                  "cuda:0", torch.bfloat16))]
     calls += [(spatial_fault.level_sums, (wcpu, x, "cuda:0", m and {"rank": 1, "module": m}))
               for m in (None, *faults)]
+    first_ablation = len(calls)
+    calls += abl_calls
     t1 = time.perf_counter()
     ranks = spawn.run(spawn.dp_calls, SPACE_N, calls, backend="gloo", timeout=600)
     spawn_s = time.perf_counter() - t1
     (kern, launches, exchanges, spans), (plain, _, _), predicted = ranks[0][:3]
     for r, rank in enumerate(ranks[1:], 1):
         check(all(torch.equal(ranks[0][i][0], rank[i][0]) for i in (0, 1))
-              and all(torch.equal(ranks[0][i][1], rank[i][1]) for i in range(3, len(calls))),
+              and all(torch.equal(ranks[0][i][1], rank[i][1])
+                      for i in range(3, first_ablation)),
               f"rank {r}'s forwards differ from rank 0's")
     crit = spatial_fault.criteria(kern, one_rank, f32)
     plain_rel = ((plain - f32).norm() / f32.norm()).item()
@@ -2558,16 +2720,25 @@ def phase_spatial(dev, results, weights, vol):
         predictor_agreement=vol_agree, two_rank_s_per_vol=vol_secs[run_key],
         two_rank_span_ms_per_vol=vs, spawn_s=spawn_s)
 
-    # 4. the slab-shaped calls against their plain versions, timed
+    # 4. the ablations split, from the same spawn
+    out["ablations"], abl_launches = check_spatial_ablations(abl_refs, ranks, first_ablation)
+
+    # 5. the slab-shaped calls against their plain versions, timed
     print("[14] the slab-shaped calls of one H-split tile batch, kernel vs plain", flush=True)
-    gn_tables = phase_gn_split(dev, results, set(launches["gn_moments"]),
-                               set(launches["gn_apply"]))
+    every = [launches, *abl_launches.values()]
+    gn_tables = phase_gn_split(dev, results, set().union(*(c["gn_moments"] for c in every)),
+                               set().union(*(c["gn_apply"] for c in every)))
     conv_table = phase_kernels(dev, results, sorted(
         {(k[1], k[2], tuple(k[4:7]), k[0] == conv3x3.FUSED, k[7]) for k in launches["conv3x3"]}))
     resize_table = phase_resize(dev, results, set(launches["resize"]))[0]
+    missing = [k for c in every for kind, table in (("conv3x3", conv_table),
+                                                    ("resize", resize_table))
+               for k in c[kind] if k not in table]
+    check(not missing, f"the split ablations launched shapes phase 14 did not check: {missing}")
     results["spatial"] = out
-    return {"tile_batch": launches, "volume": vol_calls, "gn_moments": gn_tables[0],
-            "gn_apply": gn_tables[1], "conv3x3": conv_table, "resize": resize_table}
+    return {"tile_batch": launches, "volume": vol_calls, "ablations": abl_launches,
+            "gn_moments": gn_tables[0], "gn_apply": gn_tables[1], "conv3x3": conv_table,
+            "resize": resize_table}
 
 # phase 15: the partial-label campaign (tools/campaign.py, tools/campaign_eval.py)
 CAMPAIGN_EPOCHS, CAMPAIGN_CHUNK = 6, 3   # chunks of epochs 0-3 and 3-6
@@ -2861,6 +3032,32 @@ GN_DX_SPLIT = ("multimodal_pl_tpu/ops/norm.py:95 _gn_relu_bwd (XLA; the VJP of r
                "the whole sample's sums, and the slab's ds and dt")
 
 
+def remat_recompute(layers=(1, 2, 2, 2, 2)) -> dict:
+    """Phase 16: what the recompute of a remat step's checkpointed segmenter
+    stages adds per step under an H split, from the architecture. The stages
+    are the encoder's layer0-4 (``layers`` blocks; stride 2 from layer1,
+    whose first block has a projection) and the decoder's x8/x4/x2 (one block
+    with a projection) and x1 (one without). Per block: halo exchanges (each
+    stride-1 conv's and a stride-2 conv1's), crops and conv3x3_train
+    forwards (stride-1 convs), moment gathers (GN1, GN2, the projection's);
+    the recompute stops after the last op that saved a tensor, so a stage
+    whose last block has no projection skips its final crop. Returns
+    {'halo', 'crop', 'stats', 'conv': calls added per step}."""
+    stages = [[(1, False)] * layers[0]]
+    stages += [[(2, True)] + [(1, False)] * (n - 1) for n in layers[1:]]
+    stages += [[(1, True)]] * 3 + [[(1, False)]]
+    out = dict(halo=0, crop=0, stats=0, conv=0)
+    for blocks in stages:
+        for stride, proj in blocks:
+            convs = 2 if stride == 1 else 1
+            out["halo"] += 2
+            out["crop"] += convs
+            out["conv"] += convs
+            out["stats"] += 2 + proj
+        out["crop"] -= not blocks[-1][1]
+    return out
+
+
 def phase_gn_bwd_split(dev, results, keys, n=SPACE_N):
     """Phase 16: the slab backward's entry points of csrc/gn_relu.cu against
     their plain twins at every slab shape the spatial step launches them,
@@ -2953,7 +3150,8 @@ def phase_spatial_step(dev, results, tables):
     x 192, bf16, kernels, the StepConfig defaults) from one seeded state and
     batch. ``tables``: phase 6's per-shape tables (the refiner runs on the
     gathered sample at the unsplit step's shapes). Returns the kernels-line
-    entries of the path (rank 0 of 2, one step)."""
+    entries of the path without and with remat (rank 0 of 2, one step
+    each)."""
     import dataclasses
 
     from multimodal_pl_tpu_torch.ops import conv3x3
@@ -2965,6 +3163,7 @@ def phase_spatial_step(dev, results, tables):
 
     out = {}
     cfg = StepConfig(compute_dtype=torch.bfloat16)
+    cfg_r = dataclasses.replace(cfg, remat=True)
     plain = dataclasses.replace(cfg, conv_impl="plain", gn_impl="plain")
     plain32 = dataclasses.replace(plain, compute_dtype=torch.float32)
     state = create_train_state(torch.Generator().manual_seed(0), cfg)
@@ -2975,28 +3174,43 @@ def phase_spatial_step(dev, results, tables):
     lr_t, wf_t = torch.tensor(lr, device=dev), torch.tensor(wf, device=dev)
     sd = state.to(dev)
 
-    # 1. space:1 over a one-rank NCCL group: TrainStep's state and metrics, bit for bit
-    t0 = time.perf_counter()
-    one_state, one_m = make_train_step(*(m.to(dev) for m in build_models(cfg)), cfg)(
-        sd, batch, lr_t, wf_t)
-    with init_mesh("space:1", dev) as mesh:
-        check(torch.distributed.get_backend(mesh.space.group) == "nccl",
-              "space:1 group is not NCCL")
-        step1 = make_spatial_train_step(
-            *(m.to(dev) for m in build_models(cfg, space=mesh.space)), cfg, mesh.space)
-        s1, m1 = step1(sd, spatial_batch(batch, mesh.space), lr_t, wf_t)
-        torch.cuda.synchronize()
+    # 1. space:1 over a one-rank NCCL group: TrainStep's state and metrics, bit for bit,
+    # without and with remat; deep_up=False raises, split or not, as the JAX step fails
     from multimodal_pl_tpu_torch.tools.spawn import states_unequal
+    from multimodal_pl_tpu_torch.train.step import TrainStep
 
-    unequal = states_unequal(s1, one_state)
-    m1, one_m = ({k: float(v) for k, v in m.items()} for m in (m1, one_m))
-    print(f"[16] space:1 over a one-rank NCCL group vs TrainStep, B=1 x {PATCH} bf16 kernels: "
-          f"states differ in {len(unequal)} leaves, metrics equal {m1 == one_m} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(not unequal and m1 == one_m, f"space:1 step differs from TrainStep: {unequal[:5]}")
-    out["space1_bit_equal"] = True
-    del s1, one_state, step1
-    torch.cuda.empty_cache()
+    for c in (cfg, cfg_r):
+        t0 = time.perf_counter()
+        one_state, m_one = make_train_step(*(m.to(dev) for m in build_models(c)), c)(
+            sd, batch, lr_t, wf_t)
+        with init_mesh("space:1", dev) as mesh:
+            check(torch.distributed.get_backend(mesh.space.group) == "nccl",
+                  "space:1 group is not NCCL")
+            step1 = make_spatial_train_step(
+                *(m.to(dev) for m in build_models(c, space=mesh.space)), c, mesh.space)
+            s1, m1 = step1(sd, spatial_batch(batch, mesh.space), lr_t, wf_t)
+            torch.cuda.synchronize()
+            if c.remat:
+                nodu = dataclasses.replace(cfg, deep_up=False)
+                for space in (None, mesh.space):
+                    try:
+                        TrainStep(*build_models(nodu), nodu, space=space)
+                        raised = False
+                    except ValueError:
+                        raised = True
+                    check(raised, f"TrainStep(deep_up=False, space={space}) did not raise")
+        unequal = states_unequal(s1, one_state)
+        m1, m_one = ({k: float(v) for k, v in m.items()} for m in (m1, m_one))
+        print(f"[16] space:1 over a one-rank NCCL group vs TrainStep, B=1 x {PATCH} bf16 "
+              f"kernels{', remat' if c.remat else ''}: states differ in {len(unequal)} leaves, "
+              f"metrics equal {m1 == m_one} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(not unequal and m1 == m_one,
+              f"space:1 step (remat {c.remat}) differs from TrainStep: {unequal[:5]}")
+        out["space1_bit_equal" + ("_remat" if c.remat else "")] = True
+        if not c.remat:
+            one_m = m_one
+        del s1, one_state, step1
+        torch.cuda.empty_cache()
 
     # 2. one spawned rank (the step of a group of one, TrainStep): the
     # gradients of the kernel, plain bf16 and plain f32 steps (phase 7's
@@ -3008,27 +3222,34 @@ def phase_spatial_step(dev, results, tables):
     (single,) = spawn.run(spawn.dp_calls, 1, [
         *((spawn.sp_grads, (c, state, host, wf, "cuda:0")) for c in (cfg, plain, plain32)),
         (spawn.sp_grads, (plain32, state, host, wf, "cuda:0", None, True)),
-        (spawn.sp_step, (cfg, state, host, lr, wf, "cuda:0", None, True)),
-        (spawn.sp_step, (cfg, state, big, lr, wf, "cuda:0", None, True))], timeout=600)
+        *((spawn.sp_step, (c, state, p, lr, wf, "cuda:0", None, True)) for c in (cfg, cfg_r)
+          for p in (host, big))], timeout=600)
     single_s = time.perf_counter() - t0
     ref = dict(zip(("kernel", "plain", "plain_f32", "plain_f64"), single[:4]))
     single = single[4:]
 
     # 3. two gloo ranks on the card: the kernel, plain f32 and faulty gradient
-    # passes, then the kernel step at the patch and at 1 x 128^3
+    # passes, then the kernel step at the patch and at 1 x 128^3; the same
+    # kernel gradient pass and steps with remat
     calls = [(spawn.sp_grads, (cfg, state, host, wf, "cuda:0")),
              (spawn.sp_grads, (plain32, state, host, wf, "cuda:0")),
              (spawn.sp_grads, (cfg, state, host, wf, "cuda:0", spatial_fault.drop_halo_grads)),
              (spawn.sp_step, (cfg, state, host, lr, wf, "cuda:0", None, True)),
-             (spawn.sp_step, (cfg, state, big, lr, wf, "cuda:0", None, True))]
+             (spawn.sp_step, (cfg, state, big, lr, wf, "cuda:0", None, True)),
+             (spawn.sp_grads, (cfg_r, state, host, wf, "cuda:0")),
+             (spawn.sp_step, (cfg_r, state, host, lr, wf, "cuda:0", None, True)),
+             (spawn.sp_step, (cfg_r, state, big, lr, wf, "cuda:0", None, True))]
     t0 = time.perf_counter()
     ranks = spawn.run(spawn.dp_calls, SPACE_N, calls, backend="gloo", timeout=900)
     spawn_s = time.perf_counter() - t0
-    (kl, kg), (pl, pg), (fl, fg), step_out, big_out = ranks[0]
+    (kl, kg), (pl, pg), (fl, fg), step_out, big_out, (rl, rg), rstep_out, rbig_out = ranks[0]
     for r, rank in enumerate(ranks[1:], 1):
-        same = (rank[0][0] == kl and all(torch.equal(rank[0][1][k], kg[k]) for k in kg)
-                and not states_unequal(rank[3][0], step_out[0]) and rank[3][1] == step_out[1])
-        check(same, f"rank {r}'s gradients or new state differ from rank 0's")
+        same = all(rank[i][0] == ranks[0][i][0]
+                   and all(torch.equal(rank[i][1][k], ranks[0][i][1][k]) for k in kg)
+                   for i in (0, 5))
+        same = same and all(not states_unequal(rank[i][0], ranks[0][i][0])
+                            and rank[i][1] == ranks[0][i][1] for i in (3, 6))
+        check(same, f"rank {r}'s gradients or new states differ from rank 0's")
     f32_loss, f32_grads = ref["plain_f32"]
     ok, worst, kf, pf, med = grad_leaf_check(kg, f32_grads, ref["plain"][1])
     loss_rel = abs(kl - ref["kernel"][0]) / abs(ref["kernel"][0])
@@ -3073,26 +3294,59 @@ def phase_spatial_step(dev, results, tables):
           f"returned): worst leaf {f_worst} {f_kf:.3e} vs f32 (plain bf16 {f_pf:.3e}), median "
           f"ratio {f_med:.3f}: {'MISSED' if f_ok else 'caught'}", flush=True)
     check(not f_ok, "the planted halo-gradient fault passed phase 16's per-leaf check")
-    for name, (s_, m_, calls_, ex_, peak, ms) in (("patch", step_out), ("128^3", big_out)):
+    # remat: the same gradients as without (phase 9's rule), and phase 7's per-leaf rule
+    remat_loss_rel = abs(rl - kl) / abs(kl)
+    remat_leaf = max((rel_tree(rg, kg, [k]), k) for k in kg)
+    r_ok, r_worst, r_kf, r_pf, r_med = grad_leaf_check(rg, f32_grads, ref["plain"][1])
+    print(f"[16] remat split vs split: loss rel {remat_loss_rel:.2e}, worst leaf "
+          f"{remat_leaf[0]:.2e} ({remat_leaf[1]}); per leaf vs f32 / plain-bf16 vs f32: median "
+          f"{r_med:.3f}, worst {r_worst} {r_kf:.3e} vs {r_pf:.3e}", flush=True)
+    check(remat_loss_rel <= REMAT_LOSS_REL and remat_leaf[0] <= REMAT_LEAF_REL,
+          f"remat split step vs split step: loss {remat_loss_rel}, leaf {remat_leaf}")
+    check(r_ok, f"remat spatial step gradient leaf {r_worst}: {r_kf} vs f32 > {LEAF_RATIO} x "
+                f"the plain bf16 step's {r_pf} + {LEAF_FLOOR}")
+    for name, (s_, m_, calls_, ex_, peak, ms) in (("patch", step_out), ("128^3", big_out),
+                                                  ("patch, remat", rstep_out),
+                                                  ("128^3, remat", rbig_out)):
         check(all(np.isfinite(v) for v in m_.values()) and m_["grads_finite"] == 1.0,
               f"spatial step metrics at {name}: {m_}")
-    launches, exchanges = step_out[2], step_out[3]
-    kinds = {}
-    for key, n in exchanges.items():
-        kinds[key[0]] = kinds.get(key[0], 0) + n
+
+    def kinds_of(exchanges):
+        kinds = {}
+        for key, n in exchanges.items():
+            kinds[key[0]] = kinds.get(key[0], 0) + n
+        return kinds
+
+    launches, kinds = step_out[2], kinds_of(step_out[3])
+    launches_r, kinds_r = rstep_out[2], kinds_of(rstep_out[3])
     seg_gn = sum(n for k, n in launches["gn_apply"].items() if k[0] == "relu")
     counts = {k: sum(v.values()) for k, v in launches.items()}
+    counts_r = {k: sum(v.values()) for k, v in launches_r.items()}
     print(f"[16] rank 0's calls per step: {counts}; exchanges {kinds}", flush=True)
+    print(f"[16] with remat: {counts_r}; exchanges {kinds_r}", flush=True)
     check(counts["gn_bwd_sums"] == counts["gn_bwd_dx"] == seg_gn == counts["gn_moments"] > 0,
           f"slab GroupNorm calls per step {counts}")
     check(kinds.get("halo_bwd", 0) == kinds.get("halo", 0) - 1,
           f"every halo but the stem's returns its gradient: {kinds}")
-    peaks = {"patch": {"one_rank": single[0][4], "rank0_of_2": step_out[4],
-                       "rank1_of_2": ranks[1][3][4]},
-             "128^3": {"one_rank": single[1][4], "rank0_of_2": big_out[4],
-                       "rank1_of_2": ranks[1][4][4]}}
-    wall = {"patch": {"one_rank": single[0][5], "two_ranks_gloo": step_out[5]},
-            "128^3": {"one_rank": single[1][5], "two_ranks_gloo": big_out[5]}}
+    # remat adds the recompute of the checkpointed stages, derived from the architecture
+    recompute = remat_recompute(cfg.layers)
+    train_fwd = {c: sum(n for k, n in ls["conv3x3"].items() if k[0] == conv3x3.TRAIN_FWD)
+                 for c, ls in ((False, launches), (True, launches_r))}
+    want_r = dict(counts, gn_moments=counts["gn_moments"] + recompute["stats"],
+                  gn_apply=counts["gn_apply"] + recompute["stats"],
+                  conv3x3=counts["conv3x3"] + recompute["conv"])
+    want_kinds = dict(kinds, **{k: kinds[k] + recompute[k] for k in ("halo", "crop", "stats")})
+    check(counts_r == want_r and kinds_r == want_kinds
+          and train_fwd[True] == train_fwd[False] + recompute["conv"],
+          f"remat split step calls {counts_r} / exchanges {kinds_r} != the derived {want_r} / "
+          f"{want_kinds} (recompute {recompute})")
+    peaks = {p: {"one_rank": single[i][4], "rank0_of_2": ranks[0][j][4],
+                 "rank1_of_2": ranks[1][j][4]}
+             for p, i, j in (("patch", 0, 3), ("128^3", 1, 4), ("patch, remat", 2, 6),
+                             ("128^3, remat", 3, 7))}
+    wall = {p: {"one_rank": single[i][5], "two_ranks_gloo": ranks[0][j][5]}
+            for p, i, j in (("patch", 0, 3), ("128^3", 1, 4), ("patch, remat", 2, 6),
+                            ("128^3, remat", 3, 7))}
     print(f"[16] peak GiB per rank (torch.cuda.max_memory_allocated in each rank's process): "
           f"{peaks}; step wall ms (the second step of each process, synchronized; two ranks "
           f"share one card over gloo, which stages through the host: not a scaling figure): "
@@ -3104,6 +3358,9 @@ def phase_spatial_step(dev, results, tables):
                plain_f32_leaves_above_1e5=sum(v > 1e-5 for v in plain_rels.values()),
                fault={"worst": [f_worst, f_kf, f_pf], "median_ratio": f_med, "caught": not f_ok},
                calls=counts, exchanges=kinds, peak_gib=peaks, step_ms=wall, spawn_s=spawn_s,
+               remat={"loss_rel": remat_loss_rel, "worst_leaf": list(remat_leaf),
+                      "leaf_worst": [r_worst, r_kf, r_pf], "leaf_median_ratio": r_med,
+                      "calls": counts_r, "exchanges": kinds_r, "recompute": recompute},
                gathered_mb={"organ_probs_bf16": 2 * (NC - 1) * int(np.prod(PATCH)) / 2**20,
                             "catlas_bf16": 2 * (NC - 1) * int(np.prod(PATCH)) / 2**20,
                             "labels_int64": 8 * int(np.prod(PATCH)) / 2**20})
@@ -3112,24 +3369,22 @@ def phase_spatial_step(dev, results, tables):
     print("[16] the spatial step's calls on rank 0, kernel vs plain at shapes not checked yet",
           flush=True)
     train_table, gn_table, gn_bwd_table, nograd_table, fold_table, rfwd_table, rbwd_table = tables
-    bwd_tables = phase_gn_bwd_split(dev, results, set(launches["gn_bwd_sums"]))
-    split_tables = phase_gn_split(dev, results, set(launches["gn_moments"]),
-                                  set(launches["gn_apply"]))
+    keys = {k: set(launches[k]) | set(launches_r[k]) for k in launches}
+    bwd_tables = phase_gn_bwd_split(dev, results, keys["gn_bwd_sums"])
+    split_tables = phase_gn_split(dev, results, keys["gn_moments"], keys["gn_apply"])
     train_table = dict(train_table)
     train_table.update(phase_train_conv(dev, results, {
-        k for k in launches["conv3x3"] if k[0] == conv3x3.TRAIN_FWD
+        k for k in keys["conv3x3"] if k[0] == conv3x3.TRAIN_FWD
         and (k[1], k[2], *k[3:7]) not in train_table}))
-    more = phase_resize(dev, results, set(launches["resize"]) - set(rfwd_table),
-                        set(launches["resize_backward"]) - set(rbwd_table))
+    more = phase_resize(dev, results, keys["resize"] - set(rfwd_table),
+                        keys["resize_backward"] - set(rbwd_table))
     rfwd_table, rbwd_table = {**rfwd_table, **more[0]}, {**rbwd_table, **more[1]}
-    missing = ({k for k in launches["conv3x3"] if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)}
-               - set(nograd_table)) | (set(launches["gn_relu"]) - set(gn_table)) | (
-        set(launches["gn_relu_backward"]) - set(gn_bwd_table)) | (set(launches["fold"])
-                                                                  - set(fold_table))
+    missing = ({k for k in keys["conv3x3"] if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)}
+               - set(nograd_table)) | (keys["gn_relu"] - set(gn_table)) | (
+        keys["gn_relu_backward"] - set(gn_bwd_table)) | (keys["fold"] - set(fold_table))
     check(not missing, f"the spatial step launched shapes phase 6 did not check: {missing}")
     results["spatial_step"] = out
 
-    tag = f"spatial train step --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, one card)"
     train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
 
     def entry(label, src, replaces, n, rows):
@@ -3138,6 +3393,23 @@ def phase_spatial_step(dev, results, tables):
             entries.append(kernel_entry(f"{label}, {tag}", src, replaces, n, rows))
 
     entries = []
+    for tag, launches in (
+            (f"spatial train step --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, one card)",
+             launches),
+            (f"spatial train step with remat --mesh space:{SPACE_N}, rank 0 of {SPACE_N} (gloo, "
+             "one card)", launches_r)):
+        spatial_step_entries(entry, launches, train_specs, train_table, nograd_table,
+                             split_tables, bwd_tables, gn_table, gn_bwd_table, fold_table,
+                             rfwd_table, rbwd_table)
+    return entries
+
+
+def spatial_step_entries(entry, launches, train_specs, train_table, nograd_table, split_tables,
+                         bwd_tables, gn_table, gn_bwd_table, fold_table, rfwd_table, rbwd_table):
+    """Phase 16: ``entry(label, source, replaces, launches, rows)`` for each
+    kernel of one spatial step's ``launches``, its rows from the tables."""
+    from multimodal_pl_tpu_torch.ops import conv3x3
+
     for label, specs, replaces in (
             ("conv3x3_train: conv3x3_gn prologue off (forward and dx on halo-extended slabs; "
              "gradient-free refiner)", train_specs, K2),
@@ -3167,7 +3439,6 @@ def phase_spatial_step(dev, results, tables):
              RESIZE_SOURCE, RESIZE_BWD, rbwd_table)):
         entry(label, src, replaces, sum(launches[key].values()),
               [(n, table_[k]) for k, n in launches[key].items()])
-    return entries
 
 
 def main() -> int:
@@ -3576,6 +3847,9 @@ def run_phases(amos_data, campaign_data) -> int:
             kernels.append(entry(f"{label}, {tag}", src, replaces, sum(per_vol[key].values()),
                                  [(n, table_[k]) for k, n in tile_batch[key].items()]))
     kernels += spatial_entries(spatial_run)
+    for name, calls in spatial_run["ablations"].items():
+        kernels += spatial_entries(spatial_run, calls, f"{ablation_models()[name][0].__name__} "
+                                                       "split serving (per tile batch)")
     kernels += campaign_entries(campaign_run)
     kernels += spatial_step_entries
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3

@@ -38,20 +38,25 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, sup_mask: torc
     logits: (B, D, H, W, C); labels: (B, D, H, W) with the unsupervised organs
     zeroed (cmask); sup_mask: (C,) 0/1 class weights ([0] = 0: background
     carries no loss weight); deep_outs: deep-supervision logits (the trained
-    configuration passes none); attns: 3 attention maps (B, D', H', W', C-1);
+    configuration passes none); attns: 3 attention maps (B, D', H', W', C-1),
+    full-size (D, H, W) where refiner_logits is given: the consistency term
+    holds each against the refiner's probabilities voxel by voxel (maps at
+    their own scales do not broadcast, in the JAX package either);
     refiner_logits: (C-1, D, H, W, 2) for every organ, or None in the
     pretrain phase; label_d: (C-1,) per-case organ supervision bits — the
     consistency term covers the organs NOT supervised in this case.
-    ``space`` (a SpatialGroup): every voxel tensor, refiner_logits
-    included, is this rank's H slab, and every sum over the voxels is
-    summed over the ranks (``losses.dice``); each rank gets the whole loss.
-    The deep outputs are not split."""
+    ``space`` (a SpatialGroup): every voxel tensor, the attention maps and
+    refiner_logits included, is this rank's H slab, and every sum over the
+    voxels is summed over the ranks (``losses.dice``); each rank gets the
+    whole loss. The deep outputs are not split (NotImplementedError before
+    any exchange)."""
+    if deep_outs and split(space):
+        raise NotImplementedError("segmentation_loss: deep outputs under an H split (no step "
+                                  "passes them)")
     num_fg = logits.shape[-1] - 1
     loss = edice_partial(logits, labels, sup_mask, uce=True, space=space)
 
     aux = 0.0
-    if deep_outs and split(space):
-        raise NotImplementedError("segmentation_loss: deep outputs under an H split")
     for idx, d in enumerate(deep_outs):
         ct = _nearest_labels(labels, d.shape[1:4])
         aux = aux + edice_partial(d, ct, sup_mask, uce=False) * DEEP_WEIGHTS[idx]

@@ -147,8 +147,8 @@ class GroupNorm(nn.Module):
 
     def forward(self, x):
         if split(self.space):
-            raise NotImplementedError("GroupNorm without the ReLU or the fold is not H-split "
-                                      "(ROADMAP.md queue 1)")
+            raise NotImplementedError("GroupNorm without the ReLU or the fold is not H-split: "
+                                      "no model reaches it under a split")
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
 
     def fold(self, x, impl: str):

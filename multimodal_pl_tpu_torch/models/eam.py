@@ -8,6 +8,12 @@ whatever the input dtype; the head-averaged scores are the per-class
 attention map. :class:`EAM` scales the scores after the product and returns
 them unscaled; :class:`EAMBK` and :class:`EAMIdentity` scale the queries in
 the working dtype before the product and return the scaled scores.
+
+``space`` (a :class:`multimodal_pl_tpu_torch.parallel.spatial.SpatialGroup`
+of more than one rank): the voxels are this rank's H slab, without autograd.
+The softmax over the voxels is then merged across the slabs
+(``SpatialGroup.softmax_product``), so every rank gets the whole tile's
+token update; the returned scores are the slab's own (a score is per voxel).
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_pl_tpu_torch.ops.norm import layer_norm
+from multimodal_pl_tpu_torch.ops.norm import layer_norm, split
 
 
 class LayerNorm(nn.Module):
@@ -40,18 +46,23 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
 
 
-def _attend(q, k, v, scale: float, *, scale_before_softmax: bool):
+def _attend(q, k, v, scale: float, *, scale_before_softmax: bool, space=None):
     """q: (B, h, Nt, dh); k, v: (B, h, N, dh). Returns (out (B, Nt, h*dh),
     scores (B, h, Nt, N) f32). scale_before_softmax: the product is scaled
     in f32 before the softmax and the unscaled product returned; else q is
     scaled in its own dtype first and the product is both softmaxed and
-    returned (JAX ``_attend``, eam.py:50-61)."""
+    returned (JAX ``_attend``, eam.py:50-61). Under a split of ``space`` the
+    N voxels are this rank's and the softmax's product is merged over the
+    ranks."""
     if not scale_before_softmax:
         q = q * scale
     attn = q.float() @ k.float().transpose(-1, -2)
     scores = attn * scale if scale_before_softmax else attn
-    attnf = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = (attnf.float() @ v.float()).to(v.dtype)
+    if split(space):
+        out = space.softmax_product(scores, v).to(v.dtype)
+    else:
+        attnf = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = (attnf.float() @ v.float()).to(v.dtype)
     b, h, nt, dh = out.shape
     return out.transpose(1, 2).reshape(b, nt, h * dh), attn
 
@@ -68,9 +79,9 @@ class EAM(nn.Module):
     and the output-projection branch, as in the reference (:191 and :206);
     the softmax is over scaled scores."""
 
-    def __init__(self, dim: int, num_heads: int = 4):
+    def __init__(self, dim: int, num_heads: int = 4, space=None):
         super().__init__()
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.space = dim, num_heads, space
         self.kv = nn.Linear(dim, dim * 2, bias=False)
         self.q = nn.Linear(dim, dim, bias=False)
         self.proj = nn.Linear(dim, dim)
@@ -85,7 +96,7 @@ class EAM(nn.Module):
         k, v = _linear(self.kv, self.norm2(x)).chunk(2, dim=-1)
         q = _linear(self.q, self.norm3(tokens))
         out, attn = _attend(*(_split_heads(t, h) for t in (q, k, v)), (self.dim // h) ** -0.5,
-                            scale_before_softmax=True)
+                            scale_before_softmax=True, space=self.space)
         out = _linear(self.proj, self.norm2(out)) + out
         return out, attn
 
@@ -106,9 +117,9 @@ class EAMBK(nn.Module):
     """Un-normed variant with biased kv and q projections (reference
     unet3D.py:214-278)."""
 
-    def __init__(self, dim: int, num_heads: int = 4):
+    def __init__(self, dim: int, num_heads: int = 4, space=None):
         super().__init__()
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.space = dim, num_heads, space
         self.kv = nn.Linear(dim, dim * 2)
         self.q = nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
@@ -121,7 +132,7 @@ class EAMBK(nn.Module):
         k, v = _linear(self.kv, x).chunk(2, dim=-1)
         q = _linear(self.q, tokens)
         out, attn = _attend(*(_split_heads(t, h) for t in (q, k, v)), (self.dim // h) ** -0.5,
-                            scale_before_softmax=False)
+                            scale_before_softmax=False, space=self.space)
         out = _linear(self.proj, self.norm2(out)) + out
         return out, attn
 
@@ -130,9 +141,9 @@ class EAMIdentity(nn.Module):
     """No-projection variant: q = tokens, k = v = x (reference
     unet3D.py:76-140)."""
 
-    def __init__(self, dim: int, num_heads: int = 4):
+    def __init__(self, dim: int, num_heads: int = 4, space=None):
         super().__init__()
-        self.dim, self.num_heads = dim, num_heads
+        self.dim, self.num_heads, self.space = dim, num_heads, space
         self.proj = nn.Linear(dim, dim)
         self.norm2 = LayerNorm(dim)
 
@@ -142,7 +153,7 @@ class EAMIdentity(nn.Module):
         h = self.num_heads
         xs = _split_heads(x, h)
         out, attn = _attend(_split_heads(tokens, h), xs, xs, (self.dim // h) ** -0.5,
-                            scale_before_softmax=False)
+                            scale_before_softmax=False, space=self.space)
         out = _linear(self.proj, self.norm2(out)) + out
         return out, attn
 

@@ -48,13 +48,26 @@ GroupNorm -> ReLU kernel or its plain version.
 splits each tile's H axis over the ranks of a group, for serving and for the
 spatial train step (``models/blocks.py``; every upsample, the decoder's x2
 and the attention maps' x2/x4/x8, takes one source row each side, the edge
-row repeated at the global edges). Under a split of more than one rank,
-``UNet3DFEAM`` runs with or without autograd, with ``aux=True`` (the train
-step's forward: the EAM scores are per voxel, so slab-local; the maps and
-features are the slab's rows) or ``aux=False``, and ``UNet3DBaseline``
-runs. ``deep_up=False`` with ``aux`` (its maps feed the discriminator at
-their own scales), the feam2 token pre-update, ``remat`` under autograd and
-the other ablations raise NotImplementedError (ROADMAP.md queue 1).
+row repeated at the global edges). Every model of the family runs split, and
+every output that is a map (logits, attention and deep maps, features) is
+the slab's rows:
+
+- ``UNet3DFEAM`` with or without autograd and ``remat``, ``aux`` and
+  ``deep_up`` either way: the EAM scores are per voxel, so slab-local, at
+  the full scale or at their own; with ``token_update='pre'`` the class
+  means of the slab's features under its ``mask`` rows are summed over the
+  ranks before the EMA (``models/tokens.py``), so every rank moves the
+  tokens alike;
+- ``UNet3DBaseline`` and ``UNet3DDeepSup`` (slab-local heads) likewise;
+- ``UNet3DEAM`` and ``UNet3DDynHead`` without autograd (serving, as the JAX
+  package's ``make_spatial_apply`` runs them; no step trains them): the EAM
+  cascade's softmax over the voxels and DynHead's mean over the tile are
+  merged across the ranks (``SpatialGroup.softmax_product`` and ``mean``),
+  so the tokens and the task parameters are whole on every rank.
+
+Under ``remat`` each checkpointed stage's recompute in the backward runs its
+halo exchanges and GroupNorm moment gathers again; every rank recomputes the
+same stages in the same order, since the ranks' graphs are the same.
 """
 
 from __future__ import annotations
@@ -78,16 +91,6 @@ from multimodal_pl_tpu_torch.models.eam import EAM, _linear, attn_to_map
 from multimodal_pl_tpu_torch.models.tokens import ema_update_tokens
 from multimodal_pl_tpu_torch.ops.norm import split
 from multimodal_pl_tpu_torch.ops.resize import resize_nearest, upsample_trilinear
-
-NEXT_SLICE = "ROADMAP.md queue 1, the rest of the spatial slice"
-
-
-def unsplit_only(name: str, space) -> None:
-    """Raises NotImplementedError for a part of the model that has no H
-    split yet, under a split of more than one rank."""
-    if split(space):
-        raise NotImplementedError(f"{name} under --mesh space:N is not ported: {NEXT_SLICE}")
-
 
 class Trunk(nn.Module):
     """conv1, the five encoder stages, the GN-ReLU-1x1 fusion head and the
@@ -123,8 +126,6 @@ class Trunk(nn.Module):
         """x: (B, D, H, W, 1) -> ((skip0, skip1, skip2, skip3), the fusion
         head's output at 1/16 scale). Under a split, x is this rank's H slab
         (``parallel.spatial.check_divisible`` holds its size)."""
-        if self.remat and torch.is_grad_enabled():
-            unsplit_only("remat (checkpointed stages)", self.space)
         stage = self._stage
         x = self.conv1(x)
         skip0 = x = stage(self.layer0, x)
@@ -209,14 +210,8 @@ class UNet3DFEAM(Trunk):
         only when aux; mask: (B, D, H, W) labels, read only with
         token_update='pre'. Returns (logits, attn_maps, deep_maps, features,
         tokens), or the logits alone when not aux; deep_maps is empty when
-        not deep. Under an H split x is this rank's slab and so is every
-        output; aux needs deep_up and no token pre-update."""
-        if aux and not self.deep_up:
-            unsplit_only("UNet3DFEAM(deep_up=False, aux=True): its attention maps feed the "
-                         "discriminator at their own scales", self.space)
-        if aux and self.token_update == "pre" and mask is not None:
-            unsplit_only("the feam2 token pre-update (class means over the whole tile)",
-                         self.space)
+        not deep. Under an H split x and mask are this rank's slabs, every
+        map of the output is the slab's and the tokens are whole."""
         full_spatial = tuple(x.shape[1:4])
         skips, x = self.encode(x)
         attn_maps, deep_maps, features = [], [], []
@@ -232,9 +227,12 @@ class UNet3DFEAM(Trunk):
                 deep_maps.append(head(x))
             features.append(x.detach())
             if pre:
+                # a slab starts at a multiple of the scale factor, so the
+                # nearest rows of the mask's slab are the whole mask's
                 m = resize_nearest(mask[..., None].to(x.dtype), x.shape[1:4])[..., 0]
-                new_tokens[key] = ema_update_tokens(new_tokens[key], x.detach(), m,
-                                                    self.token_alpha)
+                new_tokens[key] = ema_update_tokens(
+                    new_tokens[key], x.detach(), m, self.token_alpha,
+                    self.space.group if split(self.space) else None)
             if self.use_cm[i]:
                 x_t = x.reshape(x.shape[0], -1, x.shape[-1])
                 tok = new_tokens[key].detach().to(x.dtype)
@@ -276,8 +274,7 @@ class UNet3DDeepSup(Trunk):
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_classes: int = 14,
                  weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
                  gn_impl: str = "kernel", generator: torch.Generator | None = None, space=None):
-        unsplit_only("UNet3DDeepSup", space)
-        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, space=space)
         b, nc = base, num_classes
         self.deepout1 = self.head(b * 4, nc)
         self.deepout2 = self.head(b * 2, nc)
@@ -314,20 +311,19 @@ class UNet3DEAM(Trunk):
                  weight_std: bool = True, base: int = 32, num_eams: int = 3,
                  conv_impl: str = "kernel", gn_impl: str = "kernel",
                  generator: torch.Generator | None = None, space=None):
-        unsplit_only("UNet3DEAM", space)
-        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, space=space)
         b, nc = base, num_classes
         self.num_eams = num_eams
         self.class_token = nn.Parameter(torch.empty(nc, b * 4))
-        self.eam84 = EAM(b * 4, num_heads=4)
+        self.eam84 = EAM(b * 4, num_heads=4, space=space)
         self.linear84_2_42 = nn.Linear(b * 4, b * 2)
         self.cascade = [("eam84", "linear84_2_42")]   # (EAM, projection after it) per scale
         if num_eams >= 2:
-            self.eam42 = EAM(b * 2, num_heads=4)
+            self.eam42 = EAM(b * 2, num_heads=4, space=space)
             self.cascade.append(("eam42", None))
         if num_eams >= 3:
             self.linear42_2_21 = nn.Linear(b * 2, b)
-            self.eam21 = EAM(b, num_heads=4)
+            self.eam21 = EAM(b, num_heads=4, space=space)
             self.cascade[1] = ("eam42", "linear42_2_21")
             self.cascade.append(("eam21", None))
         self.precls_conv = self.head(b, nc)
@@ -368,19 +364,25 @@ class UNet3DDynHead(Trunk):
     def __init__(self, layers: Sequence[int] = (1, 2, 2, 2, 2), num_tasks: int = 7,
                  weight_std: bool = True, base: int = 32, conv_impl: str = "kernel",
                  gn_impl: str = "kernel", generator: torch.Generator | None = None, space=None):
-        unsplit_only("UNet3DDynHead (its gap_gn pools over the whole tile)", space)
-        super().__init__(layers, base, weight_std, conv_impl, gn_impl)
+        super().__init__(layers, base, weight_std, conv_impl, gn_impl, space=space)
         b = base
         self.num_tasks = num_tasks
-        self.gap_gn = GroupNorm(16, b * 8)
+        self.gap_gn = GroupNorm(16, b * 8, space=space)
         self.controller = nn.Linear(b * 8 + num_tasks, 162)
         self.precls_conv = self.head(b, 8)
         init_default_(self, generator or torch.Generator().manual_seed(0))
 
+    def task_features(self, bottom: torch.Tensor) -> torch.Tensor:
+        """(B, 8 * base): ``gap_gn``'s GroupNorm -> ReLU of the encoder's
+        ``bottom`` averaged over the tile (under a split, the slabs' sums
+        merged across the ranks by ``SpatialGroup.mean``)."""
+        g = self.gap_gn.relu(bottom, self.gn_impl)
+        return self.space.mean(g, (1, 2, 3)) if split(self.space) else g.mean(dim=(1, 2, 3))
+
     def forward(self, x: torch.Tensor, task_id: torch.Tensor) -> torch.Tensor:
         """x: (B, D, H, W, 1); task_id: (B,) ints below num_tasks."""
         skips, bottom = self.encode(x)
-        pooled = self.gap_gn.relu(bottom, self.gn_impl).mean(dim=(1, 2, 3))
+        pooled = self.task_features(bottom)
         onehot = F.one_hot(task_id.long(), self.num_tasks).to(pooled.dtype)
         params = _linear(self.controller, torch.cat([pooled, onehot], dim=-1))
         for xd in self.decode(bottom, skips):

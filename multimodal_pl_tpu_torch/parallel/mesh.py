@@ -116,7 +116,7 @@ def init_data_parallel(spec: str, device) -> Iterator[DataParallel]:
     axes = parse_mesh(spec)
     if "space" in axes:
         raise NotImplementedError(
-            f"--mesh {spec}: mpl-train-torch trains with data:N only (ROADMAP.md queue 1); the "
+            f"--mesh {spec}: mpl-train-torch trains with data:N only (ROADMAP.md, Quirks); the "
             "H-split step is parallel.spatial.make_spatial_train_step, and mpl-evaluate-torch "
             "serves with space:N")
     if set(axes) != {"data"}:

@@ -26,7 +26,8 @@ operation itself:
   row repeated at the global edges (half-pixel sampling clamps there),
   upsampled without the skip, which is added to the slab's rows as they
   are cropped out;
-- the rest (weight standardization, the 1x1 convs, the skip adds) is local.
+- the rest (weight standardization, the 1x1 convs, the skip adds, the deep
+  heads, the EAM scores) is local.
 
 Each exchange carries its gradient (``torch.autograd.Function``s): a halo
 row's gradient goes back to the rank that owns the row (a repeated edge
@@ -46,11 +47,17 @@ GSPMD pads uneven shards instead.
 
 :class:`SpatialSlidingWindowPredictor` is the counterpart of the JAX
 ``SlidingWindowPredictor(tile_sharding=spatial_sharding(mesh))``.
+The forwards without autograd of the EAM and DynHead ablations need two
+reductions more, each merged in rank order so that every rank gets the same
+bits: the EAM's softmax over the voxels (:meth:`SpatialGroup.softmax_product`,
+each slab's max, sum of exp and sum of exp times v merged as flash attention
+merges blocks) and DynHead's mean over the tile (:meth:`SpatialGroup.mean`).
+
 ``exchanges`` counts the halo exchanges, the crops and the statistics
-gathers by kind and shape, and the train step's exchanges: the gathers and
-sums of the losses, and in the backward the halo gradients ('halo_bwd'),
-the crops' ('crop_bwd'), the GroupNorm sums ('gn_sums') and the segmenter's
-gradient sum ('grad_sum').
+gathers by kind and shape, the ablations' 'softmax' and 'mean' gathers, and
+the train step's exchanges: the gathers and sums of the losses, and in the
+backward the halo gradients ('halo_bwd'), the crops' ('crop_bwd'), the
+GroupNorm sums ('gn_sums') and the segmenter's gradient sum ('grad_sum').
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 from typing import Callable, Sequence
 
 import numpy as np
@@ -73,9 +81,9 @@ EDGES = (None, "zero", "repeat")
 DEPTH = 16      # the U-Net's total stride: every level's slab must be whole
 
 # ("halo", edge, lo, hi, slab shape, dtype), ("crop", shape, start, rows,
-# dtype, with an add), ("stats", shape), ("gather" | "sum" | "gn_sums" |
-# "grad_sum", shape, dtype) and the backward's ("halo_bwd", ...) and
-# ("crop_bwd", ...) -> calls
+# dtype, with an add), ("stats" | "softmax" | "mean", shape), ("gather" |
+# "sum" | "gn_sums" | "grad_sum", shape, dtype) and the backward's
+# ("halo_bwd", ...) and ("crop_bwd", ...) -> calls
 exchanges: collections.Counter = collections.Counter()
 
 
@@ -111,12 +119,45 @@ class SpatialGroup:
         return cls(group, dist.get_rank(group), dist.get_world_size(group), spans=spans)
 
     def gather(self, t: torch.Tensor, kind: str = "stats") -> torch.Tensor:
-        """(N, *t.shape): every rank's t in rank order."""
+        """(N, *t.shape): every rank's t in rank order, counted under
+        ``kind``."""
         with _span(self, kind, t.device):
             out = _all_gather(t, self)
-        if kind == "stats":
-            exchanges[("stats", tuple(t.shape))] += 1
+        exchanges[(kind, tuple(t.shape))] += 1
         return out
+
+    def softmax_product(self, scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """``softmax(scores, -1) @ v`` (f32) over voxels split across the
+        ranks, without autograd: scores (..., Nt, n) f32 and v (..., n, dh)
+        hold this rank's n voxels. Each slab's (max, sum of exp, sum of exp
+        * v) per query, gathered (one all_gather, counted as 'softmax') and
+        merged in rank order as flash attention merges blocks, so every rank
+        gets the same bits: the whole softmax's product up to the order of
+        sums (the probabilities are not rounded to v's dtype first)."""
+        _no_autograd("the softmax over the split voxels", scores, v)
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        parts = self.gather(torch.cat([m, p.sum(-1, keepdim=True), p @ v.float()], -1),
+                            "softmax")
+        top = parts[..., :1].amax(0)
+        total = out = 0.0
+        for part in parts.unbind(0):
+            w = torch.exp(part[..., :1] - top)
+            total = total + part[..., 1:2] * w
+            out = out + part[..., 2:] * w
+        return out / total
+
+    def mean(self, x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        """x's mean over the spatial ``dims`` (H among them) of the whole
+        tile, without autograd: each slab's f32 sums, gathered (one
+        all_gather, counted as 'mean') and added in rank order, over the
+        whole tile's count; in x.dtype, the same bits on every rank."""
+        _no_autograd("the mean over the split voxels", x)
+        sums = self.gather(x.float().sum(dims), "mean")
+        total = sums[0]
+        for part in sums[1:]:
+            total = total + part
+        return (total / (math.prod(x.shape[d] for d in dims) * self.world)).to(x.dtype)
 
     def halo_rows(self, x: torch.Tensor, lo: int, hi: int, edge=None):
         """The slab x (NDHWC, this rank's H rows) with ``lo`` rows of the
@@ -284,6 +325,13 @@ def _span(space: SpatialGroup, tag: str, device: torch.device):
     space.spans.append((tag, start, end))
 
 
+def _no_autograd(what: str, *ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(f"{what} carries no gradient: the models that need it (the "
+                                  "EAM and DynHead ablations) run split without autograd, "
+                                  "through make_spatial_apply; no step trains them")
+
+
 def _all_gather(t: torch.Tensor, space: SpatialGroup) -> torch.Tensor:
     out = t.new_empty((space.world, *t.shape))
     dist.all_gather(list(out.unbind(0)), t.contiguous(), group=space.group)
@@ -342,10 +390,12 @@ def make_spatial_train_step(model, refiner, disc, cfg, space: SpatialGroup):
     ``space``; every rank calls the step with the same state and its
     :func:`spatial_batch` of the same batch, and gets the same new state and
     metrics, those of the single-device step up to the order of sums. A
-    group of one rank is ``TrainStep`` itself. Under a split the production
-    configuration runs (``deep_up=True``); ``deep_up=False`` and ``remat``
-    raise NotImplementedError (ROADMAP.md queue 1). Each call raises
-    ValueError before any work unless the split is even at every level
+    group of one rank is ``TrainStep`` itself. Every configuration that
+    ``TrainStep`` trains runs split, ``remat`` included: its checkpointed
+    stages recompute their halo exchanges and GroupNorm moment gathers in
+    the backward, in the same order on every rank. ``deep_up=False`` raises
+    ValueError as ``TrainStep`` does (the JAX step fails there too). Each call
+    raises ValueError before any work unless the split is even at every level
     (:func:`check_divisible`)."""
     if getattr(model, "space", None) != space:
         raise ValueError("make_spatial_train_step: the model was not built with this "
@@ -366,18 +416,27 @@ class SpatialTrainStep(TrainStep):
 def make_spatial_apply(model: torch.nn.Module, space: SpatialGroup) -> Callable:
     """``apply(x_slab, *rest, **kw) -> model(x_slab, ...)``: the forward of a
     model built with ``space`` on this rank's H slab of a batch
-    (:func:`put_spatial`), without autograd, gathered whole on every rank
-    (the JAX wrapper's ``out_sharded=False``). Raises ValueError before any
-    work unless the split is even at every level (:func:`check_divisible`)."""
+    (:func:`put_spatial`; a label ``mask`` among ``kw`` is the slab's too),
+    without autograd, its outputs whole on every rank (the JAX wrapper's
+    ``out_sharded=False``): each NDHWC output (logits, attention and deep
+    maps, features) gathered from the slabs, the rest (the class tokens)
+    already whole. Raises ValueError before any work unless the split is
+    even at every level (:func:`check_divisible`)."""
     if getattr(model, "space", None) != space:
         raise ValueError("make_spatial_apply: the model was not built with this SpatialGroup "
                          "(pass space=... to its constructor)")
 
+    def whole(y):
+        if isinstance(y, torch.Tensor):
+            return gather_spatial(y, space) if y.ndim == 5 else y
+        if isinstance(y, dict):
+            return {k: whole(v) for k, v in y.items()}
+        return type(y)(whole(v) for v in y)
+
     def apply(x: torch.Tensor, *rest, **kw):
         check_divisible((x.shape[1], x.shape[H_AXIS] * space.world, x.shape[3]), space)
         with torch.inference_mode():
-            y = model(x, *rest, **kw)
-        return gather_spatial(y, space)
+            return whole(model(x, *rest, **kw))
 
     return apply
 

@@ -30,6 +30,12 @@ row's gradient never returned to the rank that owns the row) and
 the gradient again: each rank's slab gets the gradient of N copies of the
 loss). ``tests/test_torch_port_spatial_step.py`` and ``chip_smoke.py`` phase
 16 show that their steps miss the step's tolerances.
+
+A planted fault of the split EAM cascade, a ``prepare(model, space)`` for
+``tools/spawn.py`` ``sp_forward``: :func:`unmerged_softmax` (each rank takes
+its own slab's softmax over the voxels, unmerged).
+``tests/test_torch_port_spatial_rest.py`` shows that the tokens then miss
+the tolerance.
 """
 
 from __future__ import annotations
@@ -107,6 +113,17 @@ def loss_counted_per_rank(step=None, space=None):
     real = spatial.SpatialGroup.sum
     spatial.SpatialGroup.sum = lambda self, t: dnn.all_reduce(t, group=self.group)
     return lambda: setattr(spatial.SpatialGroup, "sum", real)
+
+
+def unmerged_softmax(net=None, space=None):
+    """On every rank, ``space.softmax_product`` is the slab's own softmax
+    product: the voxels of the other slabs never enter the EAM's token
+    update. Patches this SpatialGroup instance only. Returns net."""
+    def own(scores, v):
+        return torch.softmax(scores, -1) @ v.float()
+
+    object.__setattr__(space, "softmax_product", own)
+    return net
 
 
 def _keep_outputs(net, levels) -> dict:

@@ -17,7 +17,8 @@ tensors; a rank moves what it needs to its device).
 The rank functions below: the data-parallel train step on each rank's
 batch (with the kernels' launch counts), the token EMA over a group, the
 Engine's reduction, the sharded predictor, the trainer CLI's ``main``, the
-H-split (``space``) forward, predictor and train step, the evaluator CLI's
+H-split (``space``) forward of any model of the family and of an EAM alone,
+predictor and train step, the evaluator CLI's
 ``main``, and a list of such calls in one spawn. :func:`states_unequal` lists the leaves
 in which two train states differ; :func:`reference_step` is
 the in-process reference of the data-parallel step: per-batch gradients
@@ -279,16 +280,32 @@ def span_ms(spans) -> dict:
     return dict(out)
 
 
+def _move(y, device):
+    """The tensors of a tuple, list or dict tree of them (or one) on
+    ``device``; anything else as it is."""
+    if isinstance(y, torch.Tensor):
+        return y.to(device)
+    if isinstance(y, dict):
+        return {k: _move(v, device) for k, v in y.items()}
+    if isinstance(y, (tuple, list)):
+        return type(y)(_move(v, device) for v in y)
+    return y
+
+
 def sp_forward(model_kwargs, weights, x, device="cpu", name="UNet3DFEAM", timed=False,
-               prepare=None):
+               prepare=None, args=(), kwargs=None):
     """Rank r: the H-split forward of ``name(**model_kwargs)`` built with a
     SpatialGroup over the default group and holding ``weights``, through
-    ``make_spatial_apply`` on this rank's slab of ``x``
-    (the FEAM with aux=False); ``prepare(model, space)``, if given, first
-    (``tools/spatial_fault.py`` plants its fault so). Returns (the whole
-    output on the CPU, the kernels' launch counts, the exchanges by kind and
-    shape, and with ``timed`` the stream ms of the halo exchanges, copies and
-    statistics gathers (:func:`span_ms`))."""
+    ``make_spatial_apply`` on this rank's slab of ``x`` with the model's
+    further ``args`` (DynHead's task ids, the FEAM's tokens) and ``kwargs``
+    (default: the FEAM with aux=False; a ``mask`` is split like x);
+    ``prepare(model, space)``, if given, first (``tools/spatial_fault.py``
+    plants its faults so). Returns (the whole output on the CPU, the
+    kernels' launch counts, the exchanges by kind and shape, and with
+    ``timed`` the stream ms of the halo exchanges, copies and statistics
+    gathers (:func:`span_ms`) and, as 'forward_ms', the forward's wall ms,
+    synchronized); the launches and exchanges are those of a second
+    forward, after a warm-up."""
     from multimodal_pl_tpu_torch.parallel import spatial
 
     device = _on(device)
@@ -298,16 +315,55 @@ def sp_forward(model_kwargs, weights, x, device="cpu", name="UNet3DFEAM", timed=
         prepare(net, space)
     fwd = spatial.make_spatial_apply(net, space)
     xs = spatial.put_spatial(x.to(device), space)
-    kw = {"aux": False} if name == "UNet3DFEAM" else {}
-    fwd(xs, **kw)  # warm-up (the kernels' first launches)
+    if kwargs is None:
+        kwargs = {"aux": False} if name == "UNet3DFEAM" else {}
+    kw = {k: spatial.put_spatial(v.to(device), space) if k == "mask" else _move(v, device)
+          for k, v in kwargs.items()}
+    rest = _move(list(args), device)
+    fwd(xs, *rest, **kw)  # warm-up (the kernels' first launches)
     if timed:
         span_ms(space.spans)
         space.spans.clear()
     _reset_launch_counts()
     spatial.reset_exchanges()
-    y = fwd(xs, **kw)
-    out = (y.cpu(), _launch_counts(), Counter(spatial.exchanges))
-    return out + (span_ms(space.spans),) if timed else out
+    t0 = time.perf_counter()
+    y = fwd(xs, *rest, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    out = (_move(y, "cpu"), _launch_counts(), Counter(spatial.exchanges))
+    return out + (dict(span_ms(space.spans), forward_ms=ms),) if timed else out
+
+
+def sp_task_features(model_kwargs, weights, x, device="cpu"):
+    """Rank r: ``UNet3DDynHead.task_features`` of the H-split DynHead
+    (``model_kwargs``, holding ``weights``) on this rank's slab of ``x``,
+    without autograd: the pooled vector every rank holds whole, on the
+    CPU."""
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    device = _on(device)
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    net = _spatial_model("UNet3DDynHead", model_kwargs, weights, device, space)
+    with torch.inference_mode():
+        return net.task_features(net.encode(spatial.put_spatial(x.to(device), space))[1]).cpu()
+
+
+def sp_eam(name, dim, weights, x, tokens):
+    """Rank r: the EAM variant ``name`` (``EAM``, ``EAMBK`` or
+    ``EAMIdentity``) of width ``dim`` built with a SpatialGroup over the
+    default group and holding ``weights``, without autograd, on the voxels
+    of this rank's H slab of ``x`` (B, D, H, W, dim) with ``tokens``.
+    Returns (the updated tokens, the slab's raw scores)."""
+    from multimodal_pl_tpu_torch import models
+    from multimodal_pl_tpu_torch.parallel import spatial
+
+    space = spatial.SpatialGroup.of(dist.group.WORLD)
+    eam = getattr(models, name)(dim, space=space)
+    eam.load_state_dict(weights)
+    xs = spatial.put_spatial(x, space)
+    with torch.inference_mode():
+        return eam(xs.reshape(xs.shape[0], -1, dim), tokens)
 
 
 def sp_predict(model_kwargs, weights, volumes, tile, runs, device="cpu",

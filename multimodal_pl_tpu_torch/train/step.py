@@ -43,8 +43,16 @@ every rank alike (their losses and gradients are replicated: the gather's
 backward takes the rank's own rows, without a sum). The segmenter's
 gradients are slab parts, summed over the ranks (one ``all_reduce`` per
 dtype) before the guard; the refiner's and the discriminator's are not. The
-token EMA sums its class statistics over the ranks. A group of one is the
-single-device step.
+token EMA sums its class statistics over the ranks. With ``remat`` the
+checkpointed stages' recompute in the backward exchanges its halos and
+GroupNorm moments again, in the same order on every rank. A group of one is
+the single-device step.
+
+The step trains ``deep_up=True`` only: with ``deep_up=False`` the attention
+maps stay at their own scales, and the consistency term of the segmentation
+loss cannot hold them against the refiner's full-size probabilities. The
+JAX package's step fails there at trace time; :class:`TrainStep` raises
+ValueError when it is built.
 """
 
 from __future__ import annotations
@@ -151,15 +159,14 @@ class TrainStep:
     def __init__(self, model, refiner, disc, cfg: StepConfig, group=None, space=None):
         self.model, self.refiner, self.disc, self.cfg = model, refiner, disc, cfg
         self.group, self.space = group, space
-        if split(space):
-            if group is not None:
-                raise NotImplementedError("the train step splits H or the batch, not both")
-            if not cfg.deep_up:
-                raise NotImplementedError(
-                    "the spatial train step with deep_up=False (the attention maps feed the "
-                    "DeepStyleDiscriminator at their own scales): ROADMAP.md queue 1")
-            if cfg.remat:
-                raise NotImplementedError("the spatial train step with remat: ROADMAP.md queue 1")
+        if not cfg.deep_up:
+            raise ValueError(
+                "StepConfig(deep_up=False) does not train: the consistency term of the "
+                "segmentation loss holds each attention map against the refiner's full-size "
+                "probabilities, and maps at their own scales do not broadcast with them (the "
+                "JAX package's step fails there too, at trace time, in losses/compose.py)")
+        if split(space) and group is not None:
+            raise NotImplementedError("the train step splits H or the batch, not both")
 
     def _organs(self, logits32):
         """Sample 0's organ probabilities (C-1, D, H, W) in the compute
@@ -167,15 +174,10 @@ class TrainStep:
         organs = _organs_first(torch.softmax(logits32, dim=-1)[0]).to(self.cfg.compute_dtype)
         return self.space.gather_rows(organs) if split(self.space) else organs
 
-    def _disc(self, dparams, organs, catlas, attns):
+    def _disc(self, dparams, organs, catlas):
         """Discriminator logits over all organs of sample 0 from its organ
         probabilities ``organs`` (C-1, D, H, W)."""
-        cfg = self.cfg
-        din = (organs, catlas.to(cfg.compute_dtype))
-        if cfg.deep_up:
-            return functional_call(self.disc, dparams, (din,))
-        amaps = [torch.softmax(a.float(), -1)[0].movedim(-1, 0)[..., None] for a in attns]
-        return functional_call(self.disc, dparams, (din, amaps))
+        return functional_call(self.disc, dparams, ((organs, catlas.to(self.cfg.compute_dtype)),))
 
     def losses(self, params, rparams, state: TrainState, batch, weight_feature):
         """(total loss, aux) of the segmenter and refiner, differentiable in
@@ -237,13 +239,13 @@ class TrainStep:
         dfrozen = {n: p.detach() for n, p in state.dparams.items()}
         if not splits:
             organs = self._organs(logits32)
-        d_out = self._disc(dfrozen, organs, catlas_c, attns)
+        d_out = self._disc(dfrozen, organs, catlas_c)
         loss_d = _weighted_ce_const(d_out, 1.0 - label_t, 1)
 
         total = seg + r_loss + loss_d * cfg.weight_gan
-        aux = {"logits": logits32.detach(), "attns": [a.detach() for a in attns],
-               "feats": feats, "cmask": cmask, "rlogits": rlogits, "seg_loss": seg.detach(),
-               "refine_loss": r_loss.detach(), "gan_g_loss": loss_d.detach(),
+        aux = {"logits": logits32.detach(), "feats": feats, "cmask": cmask, "rlogits": rlogits,
+               "seg_loss": seg.detach(), "refine_loss": r_loss.detach(),
+               "gan_g_loss": loss_d.detach(),
                "organs": organs.detach(), "catlas": catlas_c}
         return total, aux
 
@@ -267,7 +269,7 @@ class TrainStep:
         """(loss, grads) of the discriminator CE on detached inputs over all
         organs (train:349-368)."""
         dparams = {n: p.detach().requires_grad_(True) for n, p in state.dparams.items()}
-        d_out = self._disc(dparams, aux["organs"], aux["catlas"], aux["attns"])
+        d_out = self._disc(dparams, aux["organs"], aux["catlas"])
         d_loss = smooth_cross_entropy(d_out, batch["label_t"].long())
         g = torch.autograd.grad(d_loss, list(dparams.values()), allow_unused=True)
         return d_loss.detach(), {n: torch.zeros_like(p) if gi is None else gi

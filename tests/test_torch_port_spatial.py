@@ -271,34 +271,41 @@ def test_space_splits_h_only():
 
 
 def test_unported_parts_raise_under_space():
-    """What the spatial slices have not ported raises NotImplementedError
-    under a split, naming ROADMAP.md: aux=True with deep_up=False (its maps
-    feed the discriminator at their own scales), the feam2 token
-    pre-update, remat while autograd records, the train step with
-    deep_up=False or remat, the other ablations and GroupNorm alone; the
-    Baseline builds."""
+    """What the spatial port leaves out raises under a split, before any
+    exchange: a train step that splits H and the batch both; deep outputs in
+    the segmentation loss (no step passes them); GroupNorm without the ReLU
+    or the fold (no model reaches it split); the ablations' cross-slab
+    softmax and mean under autograd (no step trains them split). The train
+    step with deep_up=False raises ValueError split or not, as the JAX step
+    fails (tests/test_torch_port_spatial_rest.py). Every model of the family
+    builds split, and remat no longer raises."""
+    from multimodal_pl_tpu_torch.losses.compose import segmentation_loss
     from multimodal_pl_tpu_torch.train.state import build_models, tiny_step_config
     from multimodal_pl_tpu_torch.train.step import TrainStep
 
     space = _Ranks(0, 2)
-    x = torch.zeros((1, 16, 16, 16, 1))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet3DFEAM(num_classes=NC, space=space)(x)  # deep_up=False
-    feam2 = UNet3DFEAM(num_classes=NC, deep_up=True, token_update="pre", space=space)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        feam2(x, mask=torch.zeros((1, 16, 16, 16)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNet3DFEAM(num_classes=NC, deep_up=True, remat=True, space=space)(x, aux=False)
-    for kw in ({"deep_up": False}, {"remat": True}):
-        cfg = tiny_step_config(num_classes=NC, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainStep(*build_models(cfg), cfg, space=space)
-    for cls in (UNet3DDeepSup, UNet3DEAM, UNet3DDynHead):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(space=space)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = tiny_step_config(num_classes=NC)
+    with pytest.raises(NotImplementedError, match="not both"):
+        TrainStep(*build_models(cfg), cfg, group=object(), space=space)
+    for sp in (None, space):
+        with pytest.raises(ValueError, match="deep_up=False"):
+            TrainStep(*build_models(tiny_step_config(num_classes=NC, deep_up=False)),
+                      tiny_step_config(num_classes=NC, deep_up=False), space=sp)
+    logits = torch.zeros((1, 2, 4, 2, NC))
+    with pytest.raises(NotImplementedError, match="deep outputs"):
+        segmentation_loss(logits, torch.zeros((1, 2, 4, 2), dtype=torch.long), torch.ones(NC),
+                          (logits,), (), space=space)
+    with pytest.raises(NotImplementedError, match="no model reaches it"):
         UNet3DFEAM(num_classes=NC, space=space).layer0[0].gn1(torch.zeros((1, 2, 2, 2, 32)))
-    assert UNet3DBaseline(space=space).space is space
+    scores = torch.zeros((1, 4, NC, 8), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no step trains"):
+        spatial.SpatialGroup(None, 0, 2).softmax_product(scores, torch.zeros((1, 4, 8, 8)))
+    with pytest.raises(NotImplementedError, match="no step trains"):
+        spatial.SpatialGroup(None, 0, 2).mean(scores, (2, 3))
+    for cls in (UNet3DBaseline, UNet3DDeepSup, UNet3DEAM, UNet3DDynHead):
+        assert cls(space=space).space is space
+    assert TrainStep(*build_models(tiny_step_config(num_classes=NC, remat=True)),
+                     tiny_step_config(num_classes=NC, remat=True), space=space).space is space
 
 
 def test_train_cli_space_raises():
