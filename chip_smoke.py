@@ -232,7 +232,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    gn_bwd_sums_bf16 and gn_bwd_dx_bf16 against their plain twins at every
    slab shape (sums, ds and dt rel 1e-3; dx 1e-2 * max|plain|; the sums in
    one launch where one cluster holds the sample's blocks, else two), and
-   every other kernel at every slab shape the step launched, timed.
+   every other kernel at every slab shape the step launched, timed;
+17. raw NIfTI to label maps with the port alone: 10 raw synthetic scans
+   (8 CT with ids up to 430, 2 MRI) stored in a non-RAS layout (index axes
+   along world y, z, x, two of them reversed) at a voxel size of 0.8 x 0.8 x
+   2.5 go through mpl-preprocess-torch and mpl-atlas-torch (host work,
+   numpy and scipy); every written case at spacing (1, 1, 2), the first
+   case stored RAS preprocessing to the same bytes, the atlas (13, D, H, W)
+   within the cases' shapes, the csv one row per case; then 2 epochs of
+   mpl-train-torch (kernel route, full width, 64 x 64 x 64 patches, B = 2)
+   launching every training kernel, and mpl-evaluate-torch on its
+   checkpoint writing a label map per test case (every serving kernel
+   launched); no module of JAX or of the JAX package is loaded.
 
 The kernels line gives per path the calls of a volume or a step (for the
 campaign, of its whole training run and of its kernel-route evaluation)
@@ -3441,6 +3452,199 @@ def spatial_step_entries(entry, launches, train_specs, train_table, nograd_table
               [(n, table_[k]) for k, n in launches[key].items()])
 
 
+# phase 17: raw NIfTI to label maps with the port alone: mpl-preprocess-torch
+# and mpl-atlas-torch (host work, numpy and scipy), then mpl-train-torch and
+# mpl-evaluate-torch on what they wrote
+ASSET_CASES = (8, 2)                      # raw CT (ids 40 .. 430) and MRI cases
+ASSET_SHAPE = (64, 96, 80)                # a synthetic case (Z, Y, X) before its air margin
+ASSET_SPACING = (0.8, 0.8, 2.5)           # world (x, y, z) voxel size of a raw scan
+ASSET_LAYOUT = ((1, 2, 0), (-1, 1, -1))   # index axes along world y, z, x; x, z reversed
+ASSET_TILE = "64,64,64"                   # the training patch and evaluation tile (D, H, W)
+ASSET_EPOCHS, ASSET_BATCH = 2, 2
+NO_PORT_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodal_pl_tpu")
+
+
+def make_raw_scans(root: str) -> list:
+    """Phase 17's raw scans under ``root``: synthetic cases with 5 voxels of
+    air around them (-1000 for CT, whose tissue is lifted by 100 so that the
+    411-500 body threshold of 25 finds a body; 0 for MRI), stored in the
+    ASSET_LAYOUT at ASSET_SPACING as a scanner writes them, and the first
+    case stored RAS at the same voxel size under ``root``/ras; returns the
+    case ids."""
+    from multimodal_pl_tpu_torch.data.nifti import read_nifti
+    from multimodal_pl_tpu_torch.utils.synthetic import (make_synthetic_amos, scanner_layout,
+                                                         write_nifti_affine)
+
+    make_synthetic_amos(root, n_ct=ASSET_CASES[0], n_mri=ASSET_CASES[1], shape=ASSET_SHAPE,
+                        seed=17)
+    ids = []
+    for name in sorted(os.listdir(os.path.join(root, "labelsTr"))):
+        cid = int(name.split("_")[1].split(".")[0])
+        paths = (os.path.join(root, "imagesTr", name.replace(".nii", "_0000.nii")),
+                 os.path.join(root, "labelsTr", name))
+        ct = cid < 500
+        image = np.pad(read_nifti(paths[0]).data + (100 if ct else 0), 5,
+                       constant_values=-1000 if ct else 0).astype(np.float32)
+        label = np.pad(read_nifti(paths[1]).data, 5)
+        for path, vol in zip(paths, (image, label)):
+            write_nifti_affine(path, *scanner_layout(vol, *ASSET_LAYOUT, ASSET_SPACING))
+            if not ids:
+                os.makedirs(os.path.join(root, "ras"), exist_ok=True)
+                write_nifti_affine(os.path.join(root, "ras", os.path.basename(path)),
+                                   *scanner_layout(vol, (0, 1, 2), (1, 1, 1), ASSET_SPACING))
+        ids.append(cid)
+    return ids
+
+
+def phase_assets(dev, tmp):
+    """Phase 17: raw synthetic scans in a non-RAS layout at another voxel
+    size through mpl-preprocess-torch and mpl-atlas-torch (their ``main``),
+    then ASSET_EPOCHS epochs of mpl-train-torch (kernel route, full width,
+    ASSET_TILE patches, B = ASSET_BATCH) and mpl-evaluate-torch on its
+    checkpoint over the test split. Checks: every written case at spacing
+    (1, 1, 2), image and label of one shape; a scan of the first case stored
+    RAS preprocesses to the same bytes as its non-RAS scan; the atlas
+    (13, D, H, W) within the cases' shapes, finite, in [0, 1]; the csv one
+    row per case; training finite, launching every training kernel and
+    evaluation every serving kernel (counts set to 0 before each); a label
+    map per test case of the shape the dataset serves it at (D, H, W, padded
+    to the tile), labels < 14; and no module of JAX or of the JAX package
+    loaded. Returns the record."""
+    import contextlib
+    import csv
+    import gzip
+    import io
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.cli import atlas as atlas_cli
+    from multimodal_pl_tpu_torch.cli import evaluate, train
+    from multimodal_pl_tpu_torch.cli import preprocess as preprocess_cli
+    from multimodal_pl_tpu_torch.data.dataset import AMOSDataset
+    from multimodal_pl_tpu_torch.data.nifti import read_nifti
+    from multimodal_pl_tpu_torch.data.preprocess import preprocess_case
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.tools.spawn import _launch_counts, _reset_launch_counts
+    from multimodal_pl_tpu_torch.train.checkpoint import latest_checkpoint
+
+    tile = tuple(int(v) for v in ASSET_TILE.split(","))
+    t0 = time.perf_counter()
+    raw, data = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
+    ids = make_raw_scans(raw)
+    raw_s = time.perf_counter() - t0
+    log = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        preprocess_cli.main(["--images_dir", os.path.join(raw, "imagesTr"),
+                             "--out_images", os.path.join(data, "imagesTr"),
+                             "--out_labels", os.path.join(data, "labelsTr")])
+        atlas_cli.main(["--labels_dir", os.path.join(data, "labelsTr"),
+                        "--out_atlas", os.path.join(data, "atlas_mm.npy"),
+                        "--out_csv", os.path.join(data, "supervise_mask.csv")])
+    assets_s = time.perf_counter() - t1
+    lines = log.getvalue().splitlines()
+    check(lines[0] == f"Totally {len(ids)} files." and len(lines) == len(ids) + 3,
+          f"mpl-preprocess-torch / mpl-atlas-torch printed {lines}")
+    shapes = {}
+    for cid in ids:
+        img = read_nifti(os.path.join(data, "imagesTr", f"amos_{cid:04d}_0000.nii.gz"))
+        lab = read_nifti(os.path.join(data, "labelsTr", f"amos_{cid:04d}.nii.gz"))
+        check(img.spacing == lab.spacing == (1.0, 1.0, 2.0) and img.data.shape == lab.data.shape
+              and lab.data.max() < 14, f"case {cid}: spacing {img.spacing} {lab.spacing}, "
+              f"shapes {img.data.shape} {lab.data.shape}, labels < {lab.data.max() + 1}")
+        shapes[cid] = img.data.shape
+
+    # the first case's scan stored RAS gives the same bytes
+    first = ids[0]
+    names = (f"amos_{first:04d}_0000.nii.gz", f"amos_{first:04d}.nii.gz")
+    preprocess_case(*(os.path.join(raw, "ras", n) for n in names),
+                    *(os.path.join(tmp, "ras_out", n) for n in names), first)
+
+    def unzipped(path):
+        with gzip.open(path, "rb") as f:
+            return f.read()
+
+    twin_ok = all(unzipped(os.path.join(tmp, "ras_out", n)) == unzipped(os.path.join(data, d, n))
+                  for n, d in zip(names, ("imagesTr", "labelsTr")))
+
+    atlas = np.load(os.path.join(data, "atlas_mm.npy"))
+    dims = np.array(list(shapes.values()))
+    check(atlas.dtype == np.float32 and atlas.shape[0] == 13
+          and all(dims[:, i].min() <= atlas.shape[1 + i] <= dims[:, i].max() for i in range(3))
+          and np.isfinite(atlas).all() and 0 <= atlas.min() and atlas.max() <= 1,
+          f"atlas {atlas.dtype} {atlas.shape} against case shapes {sorted(shapes.values())}")
+    with open(os.path.join(data, "supervise_mask.csv")) as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == ["name", "mask"] and [r[0] for r in rows[1:]] ==
+          [f"amos_{cid:04d}" for cid in ids] and all(
+              len(r[1]) == 14 and r[1].count("1") == (cid < 500) for r, cid in zip(rows[1:], ids)),
+          f"supervise_mask.csv rows {rows}")
+    print(f"[17] {len(ids)} raw scans (ids {ids}) in a non-RAS layout at {ASSET_SPACING} "
+          f"({raw_s:.1f} s to write); mpl-preprocess-torch and mpl-atlas-torch "
+          f"({assets_s:.1f} s): every case at spacing (1, 1, 2), shapes "
+          f"{sorted(set(shapes.values()))}; the RAS twin of case {first} the same bytes: "
+          f"{twin_ok}; atlas {atlas.shape}, csv {len(rows) - 1} rows", flush=True)
+    check(twin_ok, f"case {first} stored RAS preprocesses to other bytes than its raw scan")
+
+    snap = os.path.join(tmp, "snap17")
+    t2 = time.perf_counter()
+    _reset_launch_counts()
+    state = train.main(["--data_dir", os.path.join(data, "imagesTr"),
+                        "--atlas_path", os.path.join(data, "atlas_mm.npy"),
+                        "--supervision_csv", os.path.join(data, "supervise_mask.csv"),
+                        "--snapshot_dir", snap, "--input_size", ASSET_TILE,
+                        "--batch_size", str(ASSET_BATCH), "--num_epochs", str(ASSET_EPOCHS),
+                        "--log_every", "1", "--device_data", "false", "--device", str(dev)])
+    train_calls = _launch_counts()
+    train_s = time.perf_counter() - t2
+    ckpt = latest_checkpoint(snap)
+    with open(os.path.join(snap, "train.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    check(ckpt is not None and int(state.step) > 0 and len(losses) == int(state.step)
+          and all(np.isfinite(losses)), f"training: checkpoint {ckpt}, losses {losses}")
+    spec = Counter(k[0] for k in train_calls["conv3x3"].elements())
+    train_counts = {"conv3x3": dict(spec), **{k: sum(train_calls[k].values()) for k in (
+        "gn_relu", "gn_relu_backward", "fold", "resize", "resize_backward")}}
+    check(all(spec[k] > 0 for k in conv3x3.SPECS) and all(v > 0 for v in train_counts.values()
+                                                         if isinstance(v, int)),
+          f"mpl-train-torch left a training kernel unlaunched: {train_counts}")
+
+    out_dir = os.path.join(tmp, "eval17")
+    t3 = time.perf_counter()
+    _reset_launch_counts()
+    evaluate.main(["--data_dir", os.path.join(data, "imagesTr"),
+                   "--atlas_path", os.path.join(data, "atlas_mm.npy"), "--reload_path", ckpt,
+                   "--save_path", out_dir, "--usage", "test", "--input_size", ASSET_TILE,
+                   "--print", "true", "--device", str(dev)])
+    eval_calls = _launch_counts()
+    eval_s = time.perf_counter() - t3
+    espec = Counter(k[0] for k in eval_calls["conv3x3"].elements())
+    eval_counts = {"conv3x3": dict(espec), **{k: sum(eval_calls[k].values())
+                                              for k in ("gn_relu", "fold", "resize")}}
+    check(all(espec[k] > 0 for k in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF))
+          and all(eval_counts[k] > 0 for k in ("gn_relu", "fold", "resize")),
+          f"mpl-evaluate-torch left a serving kernel unlaunched: {eval_counts}")
+    maps = {int(f.split("_")[0]): read_nifti(os.path.join(out_dir, f)).data
+            for f in sorted(os.listdir(out_dir)) if f.endswith("_pred.nii.gz")}
+    test = AMOSDataset(os.path.join(data, "imagesTr"), crop_size=tile, usage="test",
+                       atlas=atlas)
+    labels = {s.case_id: s.label.shape for s in (test[i] for i in range(len(test)))}
+    check(sorted(maps) == sorted(labels) and all(
+        m.shape == labels[cid] and m.max() < 14 for cid, m in maps.items()),
+          f"label maps {[(cid, m.shape, int(m.max())) for cid, m in maps.items()]} against "
+          f"the test split's volumes {labels}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in NO_PORT_MODULES)
+    print(f"[17] mpl-train-torch, {int(state.step)} steps in {ASSET_EPOCHS} epochs at "
+          f"{ASSET_TILE}, B = {ASSET_BATCH} ({train_s:.1f} s), losses finite, kernel calls "
+          f"{train_counts}; mpl-evaluate-torch on {os.path.basename(ckpt)} ({eval_s:.1f} s): "
+          f"label maps of cases {sorted(maps)}, kernel calls {eval_counts}; modules of JAX or "
+          f"the JAX package loaded: {loaded}", flush=True)
+    check(not loaded, f"modules of JAX or the JAX package loaded: {loaded}")
+    return {"ids": ids, "shapes": {str(k): v for k, v in shapes.items()},
+            "atlas_shape": atlas.shape, "steps": int(state.step), "losses": losses,
+            "train_calls": train_counts, "eval_calls": eval_counts, "maps": sorted(maps),
+            "raw_s": raw_s, "assets_s": assets_s, "train_s": train_s, "eval_s": eval_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -3460,7 +3664,7 @@ def main() -> int:
 
 
 def run_phases(amos_data, campaign_data) -> int:
-    """Phases 1-16; ``amos_data``, ``campaign_data``: futures of phase 10's
+    """Phases 1-17; ``amos_data``, ``campaign_data``: futures of phase 10's
     synthetic cases and phase 15's fixture root."""
     from multimodal_pl_tpu_torch.cli import evaluate
     from multimodal_pl_tpu_torch.convert import save_npz
@@ -3733,6 +3937,11 @@ def run_phases(amos_data, campaign_data) -> int:
         dev, results, (train_table, gn_table, gn_bwd_table, nograd_table, fold_step_table,
                        resize_fwd_table, resize_bwd_table))
     phase_done("spatial train step")
+
+    # ---- phase 17: raw NIfTI to label maps with the port alone -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        results["assets"] = phase_assets(dev, tmp)
+    phase_done("raw NIfTI to label maps")
 
     entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)

@@ -7,12 +7,17 @@ after gunzip, since gzip stamps the time).
 
 Small CT/MRI NIfTI volumes with ellipsoid "organs" (labels 1..13) in the
 layout the dataset reads (imagesTr/ + labelsTr/, amos_XXXX_0000 naming), a
-matching atlas and a supervision csv.
+matching atlas and a supervision csv. ``scanner_layout`` and
+``write_nifti_affine`` turn such a case into a raw scan, as a scanner stores
+it (axes permuted and reversed, another voxel size), for the preprocessing
+entry point.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
+import struct
 
 import numpy as np
 from scipy.ndimage import gaussian_filter
@@ -105,3 +110,32 @@ def make_synthetic_amos(root: str, n_ct: int = 4, n_mri: int = 2, shape=(96, 96,
     csv_path = os.path.join(root, "supervise_mask.csv")
     generate_supervision_csv(ids, csv_path)
     return img_dir, atlas_path, csv_path
+
+
+def scanner_layout(ras_zyx: np.ndarray, perm, signs, spacing):
+    """(stored (Z, Y, X) array, 4 x 4 affine) of a scan of the RAS volume
+    ``ras_zyx`` whose index axis j (x fastest) runs along world axis
+    ``perm[j]``, reversed where ``signs[j] < 0``, with world voxel size
+    ``spacing`` (x, y, z): ``data/preprocess.reorient_to_ras`` gives back
+    ``ras_zyx`` and ``spacing``."""
+    idx = np.transpose(np.transpose(ras_zyx, (2, 1, 0)), perm)
+    for j in range(3):
+        if signs[j] < 0:
+            idx = np.flip(idx, axis=j)
+    affine = np.eye(4)
+    affine[:3, :3] = 0
+    for j in range(3):
+        affine[perm[j], j] = signs[j] * spacing[perm[j]]
+    return np.ascontiguousarray(np.transpose(idx, (2, 1, 0))), affine
+
+
+def write_nifti_affine(path: str, data: np.ndarray, affine: np.ndarray) -> None:
+    """``write_nifti`` with the pixdim and sform of ``affine`` (which
+    ``write_nifti`` writes axis-aligned)."""
+    write_nifti(path, data, tuple(np.linalg.norm(affine[:3, :3], axis=0)))
+    with gzip.open(path, "rb") as f:
+        raw = bytearray(f.read())
+    for row in range(3):
+        struct.pack_into("<4f", raw, 280 + 16 * row, *affine[row])
+    with gzip.open(path, "wb") as f:
+        f.write(bytes(raw))

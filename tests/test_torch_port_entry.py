@@ -1,6 +1,7 @@
 """The port's boundary and entry point: importing every port module (the
-data-parallel ones among them), and parsing both CLIs' arguments
-(mpl-evaluate's --pallas_k2, --fused_gn, --bd and --mesh among them), loads
+data-parallel and the asset ones among them), and parsing the CLIs'
+arguments (mpl-evaluate's --pallas_k2, --fused_gn, --bd and --mesh among
+them; mpl-preprocess-torch's and mpl-atlas-torch's), loads
 no JAX and no module of the JAX package;
 mpl-evaluate-torch accepts every flag of mpl-evaluate with mpl-train-torch's
 semantics, and runs end to end on a synthetic AMOS-layout set on the CPU.
@@ -36,6 +37,10 @@ evaluate.get_arguments().parse_args([])
 evaluate.get_arguments().parse_args(["--pallas_k2", "false", "--fused_gn", "false", "--bd",
                                      "true", "--mesh", "data:2"])
 train.get_arguments().parse_args([])
+from multimodal_pl_tpu_torch.cli import atlas, preprocess
+preprocess.get_arguments().parse_args(["--images_dir", "raw/imagesTr", "--out_images", "i",
+                                       "--out_labels", "l"])
+atlas.get_arguments().parse_args(["--labels_dir", "l"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "multimodal_pl_tpu")
 print(json.dumps({"names": names, "bad": bad, "ref": ref}))
@@ -69,7 +74,10 @@ def test_port_imports_no_jax():
             "multimodal_pl_tpu_torch.tools.spawn",
             "multimodal_pl_tpu_torch.tools.campaign",
             "multimodal_pl_tpu_torch.tools.campaign_eval",
-            "multimodal_pl_tpu_torch.tools.route_probe"} <= set(got["names"]), got
+            "multimodal_pl_tpu_torch.tools.route_probe",
+            "multimodal_pl_tpu_torch.data.preprocess", "multimodal_pl_tpu_torch.data.lists",
+            "multimodal_pl_tpu_torch.data.atlas", "multimodal_pl_tpu_torch.cli.preprocess",
+            "multimodal_pl_tpu_torch.cli.atlas"} <= set(got["names"]), got
     assert got["bad"] == [], f"JAX modules loaded: {got['bad']}"
     assert got["ref"] == [], f"JAX-package modules loaded: {got['ref']}"
 
