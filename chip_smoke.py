@@ -3645,6 +3645,322 @@ def phase_assets(dev, tmp):
             "raw_s": raw_s, "assets_s": assets_s, "train_s": train_s, "eval_s": eval_s}
 
 
+# phase 18: the train step's ablation ladder (tools/step_ablate.py) at the
+# production shape; flip-TTA serving at full width, where the 8 flips fold
+# into each window batch (4 tiles become 32, and the full-resolution
+# tensors pass 2^31 elements); the kernels at those shapes; ensembles
+TTA_TILES = 8 * WINDOW_BATCH      # tiles per forward with flip TTA
+BIG_ROWS = (0, TTA_TILES - 1)     # the rows of a 32-tile output held against plain
+LADDER_STEPS = 3                  # timed steps per rung
+ENSEMBLE_REL = 1e-6               # two members' blend vs the mean of theirs: f32 order only
+
+
+def phase_ladder(dev, results):
+    """Phase 18: the ladder at B = PROD_B x PATCH on the kernel route,
+    LADDER_STEPS timed steps and 3 profiled steps per rung. The full rung's
+    new state is TrainStep's bit for bit (the step is deterministic); the
+    kernel launches per step (profiler) and each
+    hand-written kernel's calls per step do not increase down the ladder;
+    every rung's losses are finite. Returns the hand-written kernels' calls
+    of the whole ladder run ({'conv3x3', ...}: Counter by key)."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
+    from multimodal_pl_tpu_torch.tools import step_ablate
+    from multimodal_pl_tpu_torch.train.loop import to_device
+    from multimodal_pl_tpu_torch.train.state import build_models, create_train_state
+    from multimodal_pl_tpu_torch.train.step import TrainStep
+
+    cfg = step_ablate.step_config("kernel")
+    models = tuple(m.to(dev) for m in build_models(cfg))
+    batch = to_device(step_ablate.ladder_batch(PATCH, PROD_B), cfg, dev)
+    lr, wf = (torch.tensor(v, device=dev) for v in (step_ablate.LR, step_ablate.WF))
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(dev)
+    got = step_ablate.AblatedStep(*models, cfg)(state, batch, lr, wf)[0]
+    want = TrainStep(*models, cfg)(state, batch, lr, wf)[0]
+    trees = [(g, getattr(got, g), getattr(want, g)) for g in ("params", "rparams", "dparams",
+                                                               "tokens")]
+    trees += [(f"momentum{i}", got.momentum[i], want.momentum[i]) for i in range(2)]
+    differ = [f"{name}.{k}" for name, a, b in trees for k in b if not torch.equal(a[k], b[k])]
+    leaves = sum(len(b) for _, _, b in trees)
+    print(f"[18] ladder's full rung vs TrainStep, B={PROD_B} x {PATCH}: {leaves - len(differ)} of "
+          f"{leaves} state tensors bit-equal", flush=True)
+    check(not differ, f"the full rung's new state differs from TrainStep's at {differ[:5]}")
+    del got, want, state, models, batch
+    torch.cuda.empty_cache()
+
+    counters = {"conv3x3": conv3x3.launches, "gn_relu": gn_relu.launches,
+                "gn_relu_backward": gn_relu.bwd_launches, "fold": norm.fold_launches,
+                "resize": resize.launches, "resize_backward": resize.bwd_launches}
+    conv3x3.reset_launches()
+    gn_relu.reset_launches()
+    norm.fold_launches.clear()
+    resize.reset_launches()
+    rungs = step_ablate.run_ladder(PATCH, PROD_B, "kernel", steps=LADDER_STEPS, device=dev,
+                                   say=lambda s: print("  " + s, flush=True))
+    calls = {k: Counter(v) for k, v in counters.items()}
+    for a, b in zip(rungs, rungs[1:]):
+        check(b["launches"] <= a["launches"],
+              f"launches per step rise from {a['name']} ({a['launches']}) to {b['name']} "
+              f"({b['launches']})")
+        for kind, n in b["kernel_calls"].items():
+            check(n <= a["kernel_calls"][kind], f"{kind} calls per step rise from {a['name']} "
+                  f"({a['kernel_calls'][kind]}) to {b['name']} ({n})")
+    for r in rungs:
+        check(all(np.isfinite(m["loss"]) for m in r["metrics"]),
+              f"rung {r['name']}: losses {[m['loss'] for m in r['metrics']]}")
+    print(f"[18] ladder, B={PROD_B} x {PATCH}, kernel route: launches per step "
+          f"{[(r['name'], r['launches']) for r in rungs]}; hand-written kernel calls per step "
+          f"{[(r['name'], sum(r['kernel_calls'].values())) for r in rungs]}", flush=True)
+    results["ladder"] = {"rungs": rungs, "full_vs_train_step": "bit-equal", "leaves": leaves}
+    return calls
+
+
+def _rows_err(out, plain_rows):
+    """(max over BIG_ROWS of max|out[r] - plain of row r alone|, of
+    max|plain|)."""
+    err = scale = 0.0
+    for r in BIG_ROWS:
+        p = plain_rows(slice(r, r + 1)).float()
+        err = max(err, (out[r:r + 1].float() - p).abs().max().item())
+        scale = max(scale, p.abs().max().item())
+    return err, scale
+
+
+def _in_pairs(fn, b):
+    """fn over the batch rows two at a time: the plain version over the
+    whole 32-tile batch, as the check takes it."""
+    def run():
+        for i in range(0, b, 2):
+            fn(slice(i, i + 2))
+    return run
+
+
+def phase_big_tiles(dev, results, calls):
+    """Phase 18: every kernel of the TTA forward at its full-resolution
+    shapes (32 tiles, past 2^31 elements) against its plain version: the
+    conv3x3_gn calls, gn_relu forward and the fold at 64 x 192 x 192, and
+    the x2 upsample + skip into it. Rows 0 and 31 of the kernel's output
+    against the plain version on that row alone (conv, gn_relu, resize
+    within 1e-2 * max|plain|, the fold's rows within FOLD_REL). Times: the
+    kernel; the plain version over all rows, two at a time; the library
+    call. Returns {kind: {key: row}}."""
+    import torch.nn.functional as F
+
+    from multimodal_pl_tpu_torch.ops import conv3x3, resize
+    from multimodal_pl_tpu_torch.ops.conv import standardize_kernel
+    from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
+    from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
+
+    full = tuple(TILE)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    g = torch.Generator().manual_seed(18)
+    bf = torch.bfloat16
+
+    def randn(shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def affine(c):
+        return ((1 + 0.1 * torch.randn(c, generator=g)).to(dev),
+                (0.1 * torch.randn(c, generator=g)).to(dev))
+
+    def report(kind, key, row, limit_ok, note=""):
+        row.update(kind=kind, key=list(key))
+        results["big_tiles"].append(row)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+        print(f"  {kind} {key}: {row['elements']:.3e} elements; rows {list(BIG_ROWS)} vs plain "
+              f"{note}; kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library {lib}, "
+              f"bound {row['bound_ms']:.3f} ms", flush=True)
+        check(limit_ok, f"{kind} at {key} past 2^31 elements disagrees with plain: {row}")
+        torch.cuda.empty_cache()
+        return row
+
+    out = {"conv3x3": {}, "gn_relu": {}, "fold": {}, "resize": {}}
+    for key in sorted(k for k in calls["conv3x3"] if tuple(k[4:7]) == full):
+        spec, cin, cout, b, d, h, w, with_res = key
+        x = randn((b, d, h, w, cin))
+        wt = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(dev, bf)
+        a = bb = res = None
+        t = x
+        if spec == conv3x3.FUSED:
+            a, bb = 1 + 0.1 * randn((b, cin), torch.float32), 0.1 * randn((b, cin), torch.float32)
+            t = torch.empty_like(x)  # the library's input: already normalized
+            for i in range(b):
+                t[i] = torch.relu(x[i].float() * a[i] + bb[i]).to(bf)
+        if with_res:
+            res = randn((b, d, h, w, cout))
+
+        def plain(s):
+            return conv3x3.conv3x3_gn_reference(x[s], wt, None if a is None else a[s],
+                                                None if bb is None else bb[s],
+                                                None if res is None else res[s])
+
+        k = conv3x3.conv3x3_gn(x, wt, a, bb, res)
+        err, scale = _rows_err(k, plain)
+        del k
+        t_cl = t.permute(0, 4, 1, 2, 3)
+        row = {"elements": b * d * h * w * max(cin, cout), "max_abs_err": err,
+               "max_abs_plain": scale, "ms": time_ms(lambda: conv3x3.conv3x3_gn(x, wt, a, bb, res), 3),
+               "plain_ms": time_ms(_in_pairs(plain, b), 1), "library_ms": time_ms(lambda: F.conv3d(t_cl, wt, padding=1), 3),
+               **conv_bound(b, d, h, w, cin, cout, spec == conv3x3.FUSED, with_res)}
+        out["conv3x3"][key] = report("conv3x3_gn", key, row, err <= 1e-2 * scale,
+                                     f"max|k-p| {err:.3g} (max|p| {scale:.3g})")
+        del x, t, t_cl, res, a, bb
+    for key in sorted(k for k in calls["gn_relu"] if tuple(k[3:6]) == full):
+        c, groups, b, d, h, w = key
+        x = randn((b, d, h, w, c)) * 2 + 0.5
+        sc, bi = affine(c)
+        with torch.no_grad():
+            k = group_norm_relu(x, sc, bi, groups)
+            err, scale = _rows_err(k, lambda s: group_norm_relu_reference(x[s], sc, bi, groups))
+            del k
+            x_cl = x.permute(0, 4, 1, 2, 3)
+            row = {"elements": x.numel(), "max_abs_err": err, "max_abs_plain": scale,
+                   "ms": time_ms(lambda: group_norm_relu(x, sc, bi, groups), 3),
+                   "plain_ms": time_ms(_in_pairs(
+                       lambda s: group_norm_relu_reference(x[s], sc, bi, groups), b), 1),
+                   "library_ms": time_ms(lambda: _gn_library(x_cl, groups, sc.to(bf), bi.to(bf)), 3),
+                   **bound(0.0, 4 * x.numel() + 8 * c)}
+        out["gn_relu"][key] = report("gn_relu forward", key, row, err <= 1e-2 * scale,
+                                     f"max|k-p| {err:.3g} (max|p| {scale:.3g})")
+        del x, x_cl
+    for key in sorted(k for k in calls["fold"] if tuple(k[3:6]) == full):
+        c, groups, b, d, h, w = key
+        x = randn((b, d, h, w, c)) * 2 + 0.5
+        sc, bi = affine(c)
+        ka, kb = group_norm_fold(x, sc, bi, groups, impl="kernel")
+        rel = err = 0.0
+        for r in BIG_ROWS:
+            pa, pb = group_norm_fold(x[r:r + 1], sc, bi, groups)
+            for kt, pt in ((ka[r:r + 1], pa), (kb[r:r + 1], pb)):
+                err = max(err, (kt - pt).abs().max().item())
+                rel = max(rel, ((kt - pt).abs().max() / pt.abs().max()).item())
+        row = {"elements": x.numel(), "rel": rel, "max_abs_err": err,
+               "ms": time_ms(lambda: group_norm_fold(x, sc, bi, groups, impl="kernel"), 3),
+               "plain_ms": time_ms(_in_pairs(lambda s: group_norm_fold(x[s], sc, bi, groups), b), 1),
+               "library_ms": None,  # no library call gives GroupNorm statistics alone
+               **bound(0.0, 2 * x.numel() + 4 * (2 * b * c + 2 * c))}
+        out["fold"][key] = report("fold", key, row, rel <= FOLD_REL, f"rel {rel:.3g}")
+        del x, ka, kb
+    for key in sorted((k for k in calls["resize"] if tuple(v * k[0] for v in k[4:7]) == full),
+                      key=str):
+        factor, c, dtype, b, d, h, w, with_skip = key
+        x = randn((b, d, h, w, c), getattr(torch, dtype))
+        sk = randn((b, *full, c), getattr(torch, dtype)) if with_skip else None
+        k = resize.upsample_trilinear(x, factor, sk)
+        err, scale = _rows_err(k, lambda s: resize.upsample_trilinear_reference(
+            x[s].float(), factor, None if sk is None else sk[s].float()))
+        del k
+        x_cf = x.permute(0, 4, 1, 2, 3)
+        row = {"elements": b * c * factor ** 3 * d * h * w, "max_abs_err": err,
+               "max_abs_plain": scale,
+               "ms": time_ms(lambda: resize.upsample_trilinear(x, factor, sk), 3),
+               "plain_ms": time_ms(_in_pairs(lambda s: resize.upsample_trilinear_reference(
+                   x[s], factor, None if sk is None else sk[s]), b), 1),
+               "library_ms": time_ms(lambda: F.interpolate(x_cf, scale_factor=factor,
+                                                           mode="trilinear"), 3),
+               **resize_bound(key)}
+        out["resize"][key] = report("resize3d forward", key, row, err <= 1e-2 * scale,
+                                    f"max|k-p| {err:.3g} (max|p| {scale:.3g})")
+        del x, sk, x_cf
+    check(all(out.values()), f"a kernel of the TTA forward has no full-resolution shape: "
+          f"{ {k: list(v) for k, v in out.items()} }")
+    return out
+
+
+def phase_tta(dev, results, model, plain, vol):
+    """Phase 18: flip-TTA serving at window batch WINDOW_BATCH, bf16, argmax,
+    over phase 4's volume, kernel route against the plain route with the
+    same weights: label agreement >= 0.95; the kernels' calls per volume
+    as phase 4's (the flips fold into the batch), each call at TTA_TILES
+    tiles. Then each kernel at the forward's full-resolution shapes
+    (phase_big_tiles). Returns (calls per volume {kind: Counter}, window
+    batches per volume, phase_big_tiles' rows)."""
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.infer.sliding import (
+        SlidingWindowPredictor, make_window_grid, pad_to_bucket)
+    from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
+
+    def predictor(net):
+        return SlidingWindowPredictor(lambda t: net(t, aux=False), TILE, NC,
+                                      window_batch=WINDOW_BATCH, tta=True,
+                                      compute_dtype=torch.bfloat16, device=dev, output="argmax")
+
+    pred = predictor(model)
+    pred(vol)  # warm-up: the library picks its algorithms at the 32-tile batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv3x3.reset_launches()
+    norm.fold_launches.clear()
+    gn_relu.reset_launches()
+    resize.reset_launches()
+    t0 = time.perf_counter()
+    labels = pred(vol)
+    torch.cuda.synchronize()
+    s_vol = time.perf_counter() - t0
+    calls = {"conv3x3": Counter(conv3x3.launches), "fold": Counter(norm.fold_launches),
+             "gn_relu": Counter(gn_relu.launches), "resize": Counter(resize.launches)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    totals = conv3x3.launch_totals()
+    torch.cuda.reset_peak_memory_stats()
+    agree = (predictor(plain)(vol) == labels).float().mean().item()
+    plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = -(-len(make_window_grid(pad_to_bucket(VOL, tile=TILE), TILE)) // WINDOW_BATCH)
+    tiles = ({k[3] for k in calls["conv3x3"]} | {k[2] for k in calls["fold"]}
+             | {k[2] for k in calls["gn_relu"]} | {k[3] for k in calls["resize"]})
+    n = {kind: sum(c.values()) for kind, c in calls.items()}
+    results["tta"] = {"s_per_vol": s_vol, "peak_gib": peak, "plain_peak_gib": plain_peak,
+                      "label_agreement": agree, "calls": n, "conv_totals": totals,
+                      "tile_batches": sorted(tiles), "window_batches": batches}
+    print(f"[18] flip TTA, {VOL} volume, window batch {WINDOW_BATCH} ({batches} forwards of "
+          f"{sorted(tiles)} tiles), bf16, argmax: {s_vol:.3f} s/vol, peak {peak:.2f} GiB (plain "
+          f"route {plain_peak:.2f} GiB); calls {totals} + fold {n['fold']} + gn_relu "
+          f"{n['gn_relu']} + resize3d {n['resize']}; label agreement with plain {agree:.5f}",
+          flush=True)
+    check(totals == {conv3x3.FUSED: 54, conv3x3.PROLOGUE_OFF: 12, conv3x3.TRAIN_FWD: 0,
+                     conv3x3.TRAIN_DX: 0}, f"TTA launches {totals} != phase 4's 54 + 12")
+    check(n["fold"] == 54 and n["gn_relu"] == 51 and n["resize"] == 12,
+          f"TTA calls {n} != phase 4's fold 54, gn_relu 51, resize3d 12")
+    check(tiles == {TTA_TILES}, f"TTA kernel calls at batches {tiles}, not {TTA_TILES}")
+    check(agree >= 0.95, f"TTA label agreement with the plain model {agree} < 0.95")
+    del pred, labels
+    torch.cuda.empty_cache()
+    print(f"[18] the kernels at the TTA forward's full-resolution shapes ({TTA_TILES} tiles), "
+          f"rows {list(BIG_ROWS)} against plain", flush=True)
+    return calls, batches, phase_big_tiles(dev, results, calls)
+
+
+def phase_ensemble(dev, results, model, vol):
+    """Phase 18: at the predictor level, a two-member ensemble of the kernel
+    route with flip TTA (the evaluator's ``ensemble_forward``) blends to the
+    mean of the members' own blended logits within ENSEMBLE_REL of its
+    largest magnitude (the blend is linear; only the f32 order of sums
+    differs)."""
+    from multimodal_pl_tpu_torch.cli.evaluate import ensemble_forward
+    from multimodal_pl_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from multimodal_pl_tpu_torch.models import UNet3DFEAM
+
+    other = UNet3DFEAM(deep_up=True, conv_impl="kernel",
+                       generator=torch.Generator().manual_seed(1)).to(dev).eval()
+
+    def logits(members):
+        return SlidingWindowPredictor(ensemble_forward(members), TILE, NC,
+                                      window_batch=WINDOW_BATCH, tta=True,
+                                      compute_dtype=torch.bfloat16, device=dev)(vol)
+
+    with torch.inference_mode():
+        both = logits([model, other])
+        mean = (logits([model]) + logits([other])) / 2
+        rel = ((both - mean).abs().max() / mean.abs().max()).item()
+    results["ensemble_rel"] = rel
+    print(f"[18] ensemble of two with flip TTA over {VOL}: blend vs the mean of the members' "
+          f"blends, max|diff| / max = {rel:.3e}", flush=True)
+    check(rel <= ENSEMBLE_REL, f"two-member blend {rel} from the members' mean > {ENSEMBLE_REL}")
+    del other, both, mean
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU",
@@ -3684,7 +4000,7 @@ def run_phases(amos_data, campaign_data) -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda, "kernels": [],
                "fold": [], "gn_relu": [], "gn_relu_serving": [], "gn_relu_backward": [],
                "conv3x3_train": [], "resize": [], "gn_relu_ablation": [], "gn_split": [],
-               "phase_s": {}}
+               "big_tiles": [], "phase_s": {}}
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -3842,9 +4158,23 @@ def run_phases(amos_data, campaign_data) -> int:
                                   "--atlas_path", atlas_path])
         with open(csv_path) as f:
             rows = f.read().strip().splitlines()
+        # flip TTA at window batch 4, one member and the same member twice:
+        # the mean of two equal logits is the logits, so the same CSV
+        tta_csv = {}
+        for name, reload in (("one", ckpt), ("twice", f"{ckpt},{ckpt}")):
+            with open(evaluate.main(["--data_dir", img_dir, "--reload_path", reload,
+                                     "--save_path", os.path.join(tmp, "tta_" + name),
+                                     "--atlas_path", atlas_path, "--tta", "true",
+                                     "--window_batch", str(WINDOW_BATCH)])) as f:
+                tta_csv[name] = f.read()
     check(len(rows) == 3, f"CLI CSV has {len(rows)} lines, expected header + 2 cases")
     print(f"[5] mpl-evaluate-torch: {len(rows) - 1} cases written to per_case_dice.csv",
           flush=True)
+    check(len(tta_csv["one"].strip().splitlines()) == 3 and tta_csv["one"] == tta_csv["twice"],
+          f"--tta true: the ensemble of one checkpoint twice wrote another CSV than the "
+          f"checkpoint alone:\n{tta_csv['one']}\n{tta_csv['twice']}")
+    print("[5] mpl-evaluate-torch --tta true --window_batch 4: --reload_path a,a writes the CSV "
+          "of a alone", flush=True)
 
     phase_done("serving")
 
@@ -3943,6 +4273,13 @@ def run_phases(amos_data, campaign_data) -> int:
         results["assets"] = phase_assets(dev, tmp)
     phase_done("raw NIfTI to label maps")
 
+    # ---- phase 18: the step's ladder; flip TTA and ensembles at full width ------
+    ladder_calls = phase_ladder(dev, results)
+    phase_done("step ladder")
+    tta_calls, tta_batches, big = phase_tta(dev, results, model, plain, vol)
+    phase_ensemble(dev, results, model, vol)
+    phase_done("flip TTA and ensembles")
+
     entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)
     serving = {k: r for k, r in table.items() if r["b"] == WINDOW_BATCH}
@@ -3992,32 +4329,36 @@ def run_phases(amos_data, campaign_data) -> int:
                              RESIZE_BWD, sum(run["resize_backward"].values()),
                              [(n, resize_bwd_table[k])
                               for k, n in expected["resize_backward"].items()]))
+    # per B = PROD_B train step: each call's per-shape row from phase 6, the
+    # launches those of the path's run
+    def step_entries(tag, run):
+        expected = step_expected(StepConfig(), PROD_B)
+        out = [entry(f"{name}, {tag}", SOURCE, replaces,
+                     sum(n for k, n in run["conv3x3"].items() if k[0] in spec_set),
+                     step_rows(spec_set, expected["conv3x3"]))
+               for name, spec_set, replaces in (
+                   ("conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free "
+                    "refiner)", train_specs, K2),
+                   ("conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass",
+                    (conv3x3.FUSED,), K2_GN))]
+        for key, name, src, replaces, table_ in (
+                ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU, gn_table),
+                ("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16)", GN_SOURCE, GN_BWD,
+                 gn_bwd_table),
+                ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
+                 fold_step_table),
+                ("resize", "resize3d forward (upsample [+ skip])", RESIZE_SOURCE, RESIZE,
+                 resize_fwd_table),
+                ("resize_backward", "resize3d backward (gather form)", RESIZE_SOURCE,
+                 RESIZE_BWD, resize_bwd_table)):
+            out.append(entry(f"{name}, {tag}", src, replaces, sum(run[key].values()),
+                             [(n, table_[k]) for k, n in expected[key].items()]))
+        return out
+
     # this slice's paths: rank 0 of the two-rank step and of sharded serving
     # (per volume: 2 of its 3 tile batches), each row the single path's
     tag = "rank 0 of 2 (gloo, one card)"
-    dp_expected = step_expected(StepConfig(), PROD_B)
-    for name, spec_set, replaces in (
-            ("conv3x3_train: conv3x3_gn prologue off (forward, dx; gradient-free refiner)",
-             train_specs, K2), ("conv3x3_gn fused GN-ReLU prologue, refiner gradient-free pass",
-                                (conv3x3.FUSED,), K2_GN)):
-        kernels.append(entry(f"{name}, data-parallel B={PROD_B} train step, {tag}", SOURCE,
-                             replaces,
-                             sum(n for k, n in dp_step_run["conv3x3"].items()
-                                 if k[0] in spec_set),
-                             step_rows(spec_set, dp_expected["conv3x3"])))
-    for key, name, src, replaces, table_ in (
-            ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU, gn_table),
-            ("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16)", GN_SOURCE, GN_BWD,
-             gn_bwd_table),
-            ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD,
-             fold_step_table),
-            ("resize", "resize3d forward (upsample [+ skip])", RESIZE_SOURCE, RESIZE,
-             resize_fwd_table),
-            ("resize_backward", "resize3d backward (gather form)", RESIZE_SOURCE, RESIZE_BWD,
-             resize_bwd_table)):
-        kernels.append(entry(f"{name}, data-parallel B={PROD_B} train step, {tag}", src, replaces,
-                             sum(dp_step_run[key].values()),
-                             [(n, table_[k]) for k, n in dp_expected[key].items()]))
+    kernels += step_entries(f"data-parallel B={PROD_B} train step, {tag}", dp_step_run)
     kernels += [entry(f"conv3x3_gn fused GN-ReLU prologue, sharded serving, {tag}", SOURCE, BDX,
                       sum(n for k, n in dp_serving_run["conv3x3"].items()
                           if k[0] == conv3x3.FUSED),
@@ -4061,6 +4402,18 @@ def run_phases(amos_data, campaign_data) -> int:
                                                        "split serving (per tile batch)")
     kernels += campaign_entries(campaign_run)
     kernels += spatial_step_entries
+    # phase 18: the ladder's six rungs (rows: the full rung's step), and the
+    # flip-TTA forward's full-resolution calls at 32 tiles (per forward)
+    kernels += step_entries(f"the step ladder's six rungs, B={PROD_B}", ladder_calls)
+    for kind, label, src, replaces in (
+            ("conv3x3", "conv3x3_gn fused GN-ReLU prologue", SOURCE, BDX),
+            ("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU),
+            ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD),
+            ("resize", "resize3d forward (x2 upsample + skip)", RESIZE_SOURCE, RESIZE)):
+        kernels.append(entry(
+            f"{label}, flip-TTA serving: its {TTA_TILES}-tile calls at full resolution", src,
+            replaces, sum(tta_calls[kind][k] for k in big[kind]),
+            [(tta_calls[kind][k] // tta_batches, row) for k, row in big[kind].items()]))
     results["fold_calls_per_step"] = sum(step_run["fold"].values()) // 3
     # conv3x3_gn calls per key, for per-row sums of other timings of the shapes
     results["serving_calls"] = [[*k, n] for k, n in per_forward.items()]

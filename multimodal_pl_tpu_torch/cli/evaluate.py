@@ -167,6 +167,17 @@ def _load_members(args, device, say=print, space=None):
     return members
 
 
+def ensemble_forward(members):
+    """The tile batch's logits of an ensemble (``--reload_path a,b,...``):
+    the mean of the members' f32 logits, as the JAX CLI's ``fwd`` (its
+    cli/evaluate.py:156-161). Logits only (``aux=False``): the EAMs and
+    deep heads do not feed them."""
+    def fwd(tiles):
+        return sum(m(tiles, aux=False).float() for m in members) / len(members)
+
+    return fwd
+
+
 def main(argv=None):
     """Returns the path of the per-case CSV (on every rank under ``--mesh``)."""
     args = get_arguments().parse_args(argv)
@@ -194,12 +205,7 @@ def _evaluate(args, device, dp):
     d, h, w = map(int, args.input_size.split(","))
     nfg = args.num_classes - 1
     space = dp.space if dp else None
-    members = _load_members(args, device, say, space)
-
-    def fwd(tiles):
-        # logits only (aux=False): the EAMs and deep heads do not feed them
-        out = sum(m(tiles, aux=False).float() for m in members)
-        return out / len(members)
+    fwd = ensemble_forward(_load_members(args, device, say, space))
 
     atlas = np.load(args.atlas_path) if os.path.exists(args.atlas_path) else None
     use_atlas = args.use_atlas_threshold and atlas is not None

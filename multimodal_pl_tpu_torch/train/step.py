@@ -196,10 +196,8 @@ class TrainStep:
             self.model, params, (images, state.tokens), {"deep": False})
         logits32 = logits.float()
 
-        # refiner: a gradient pass over the supervised labeled-modality organs
-        # (tlist, gathered to a static K rows) and a gradient-free pass over
-        # the other rows for the pseudo-labels (train:277-291); under a split
-        # on sample 0's whole probabilities, atlas and labels
+        # the refiner's inputs; under a split sample 0's whole probabilities,
+        # atlas and labels
         if splits:
             organs = self._organs(logits32)
             organ_probs = organs.detach()
@@ -208,7 +206,34 @@ class TrainStep:
             probs0 = torch.softmax(logits32[0].detach(), dim=-1)
             organ_probs = _organs_first(probs0).to(cfg.compute_dtype)
             cmask0 = cmask
-        tlist_w = label_t * sup_mask[1:]
+        r_loss, rlogits = self.refiner_passes(rparams, organ_probs, catlas_c, cmask0,
+                                              label_t * sup_mask[1:])
+
+        # deep_outs=(): the reference training script passes deep_out=[] (train:305)
+        seg = segmentation_loss(logits32, cmask, sup_mask, (), attns,
+                                refiner_logits=self.consistency_logits(rlogits, logits.shape[2]),
+                                label_d=sup_mask[1:], weight_feature=weight_feature,
+                                space=space)
+
+        # built before the sum, as the gradients' order in the backward depends on it
+        gan = self.generator_term(state, logits32, organs if splits else None, catlas_c,
+                                  label_t)
+        total = seg + r_loss
+        aux = {"logits": logits32.detach(), "feats": feats, "cmask": cmask, "rlogits": rlogits,
+               "seg_loss": seg.detach(), "refine_loss": r_loss.detach()}
+        if gan is not None:  # None: no generator term
+            loss_d, organs = gan
+            total = total + loss_d * cfg.weight_gan
+            aux.update(gan_g_loss=loss_d.detach(), organs=organs, catlas=catlas_c)
+        return total, aux
+
+    def refiner_passes(self, rparams, organ_probs, catlas_c, cmask0, tlist_w):
+        """The refiner's gradient pass over the supervised labeled-modality
+        organs (tlist, gathered to a static K rows) with its refine loss, and
+        its gradient-free pass over the other rows for the pseudo-labels
+        (train:277-291): (refine loss, logits (C-1, D, H, W, 2) f32 detached)."""
+        cfg = self.cfg
+        nfg = cfg.num_classes - 1
         k = min(cfg.refine_grad_organs, nfg)
         order = torch.argsort(-tlist_w, stable=True)  # tlist rows first, ties as JAX
         sup_idx, rest_idx = order[:k], order[k:]
@@ -216,38 +241,39 @@ class TrainStep:
             self.refiner, rparams, ((organ_probs[sup_idx], catlas_c[sup_idx]),)).float()
         r_loss = refine_loss(rlogits_sup, cmask0, tlist_w[sup_idx], aug_mask=cfg.augmask,
                              organ_ids=sup_idx + 1)
-        if k < nfg:
-            with torch.no_grad():
-                rest = functional_call(
-                    self.refiner, {n: p.detach() for n, p in rparams.items()},
-                    ((organ_probs[rest_idx], catlas_c[rest_idx]),)).float()
-            rlogits = rest.new_zeros((nfg, *rest.shape[1:]))
-            rlogits[sup_idx] = rlogits_sup.detach()
+        if k == nfg:
+            return r_loss, rlogits_sup.detach()[torch.argsort(sup_idx)]
+        rest = self.rest_pass(rparams, organ_probs, catlas_c, rest_idx)
+        rlogits = rlogits_sup.new_zeros((nfg, *rlogits_sup.shape[1:]))
+        rlogits[sup_idx] = rlogits_sup.detach()
+        if rest is not None:  # None leaves the rows zero
             rlogits[rest_idx] = rest
-        else:
-            rlogits = rlogits_sup.detach()[torch.argsort(sup_idx)]
+        return r_loss, rlogits
 
-        # deep_outs=(): the reference training script passes deep_out=[] (train:305)
-        h = logits.shape[2]
-        own = rlogits[:, :, space.rank * h:(space.rank + 1) * h] if splits else rlogits
-        seg = segmentation_loss(logits32, cmask, sup_mask, (), attns, refiner_logits=own,
-                                label_d=sup_mask[1:], weight_feature=weight_feature,
-                                space=space)
+    @torch.no_grad()
+    def rest_pass(self, rparams, organ_probs, catlas_c, rows):
+        """The refiner on ``rows`` without autograd (the fused inference
+        route): f32 logits (R, D, H, W, 2)."""
+        return functional_call(self.refiner, {n: p.detach() for n, p in rparams.items()},
+                               ((organ_probs[rows], catlas_c[rows]),)).float()
 
-        # generator term: the frozen discriminator passes gradient to the
-        # logits and takes none itself (train:323-347)
+    def consistency_logits(self, rlogits, h: int):
+        """The refiner logits that the consistency term of the segmentation
+        loss holds the attention maps against: under a split the rank's own
+        H slab."""
+        space = self.space
+        return rlogits[:, :, space.rank * h:(space.rank + 1) * h] if split(space) else rlogits
+
+    def generator_term(self, state: TrainState, logits32, organs, catlas_c, label_t):
+        """The generator term through the frozen discriminator, which passes
+        gradient to the logits and takes none itself (train:323-347): (its
+        loss, the organ probabilities it judged, detached). ``organs`` is
+        None unless already gathered (under a split)."""
         dfrozen = {n: p.detach() for n, p in state.dparams.items()}
-        if not splits:
+        if organs is None:
             organs = self._organs(logits32)
         d_out = self._disc(dfrozen, organs, catlas_c)
-        loss_d = _weighted_ce_const(d_out, 1.0 - label_t, 1)
-
-        total = seg + r_loss + loss_d * cfg.weight_gan
-        aux = {"logits": logits32.detach(), "feats": feats, "cmask": cmask, "rlogits": rlogits,
-               "seg_loss": seg.detach(), "refine_loss": r_loss.detach(),
-               "gan_g_loss": loss_d.detach(),
-               "organs": organs.detach(), "catlas": catlas_c}
-        return total, aux
+        return _weighted_ce_const(d_out, 1.0 - label_t, 1), organs.detach()
 
     def grads(self, state: TrainState, batch, weight_feature):
         """(total, (grads of params, grads of rparams), aux); parameters that
@@ -288,7 +314,6 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch, lr, weight_feature):
         cfg = self.cfg
-        nfg = cfg.num_classes - 1
         space = self.space
         total, (gp, gr), aux = self.summed_grads(state, batch, weight_feature)
 
@@ -303,14 +328,7 @@ class TrainStep:
         momentum = (select_tree(g_ok, new_bp, state.momentum[0]),
                     select_tree(g_ok, new_br, state.momentum[1]))
 
-        disc_lr = poly_lr(cfg.disc_lr, state.epoch, cfg.num_epochs)  # train:325
-        d_loss, dgrads = self.disc_grads(state, aux, batch)
-        if self.group is not None:
-            dgrads, losses = tree_mean([dgrads, {"d": d_loss, "t": total}], self.group)
-            d_loss, total = losses["d"], losses["t"]
-        d_ok = all_finite(dgrads)
-        dparams = select_tree(d_ok, fresh_adam_update(state.dparams, dgrads, disc_lr),
-                              state.dparams)
+        dparams, d_loss, d_ok, total = self.disc_step(state, aux, batch, total)
 
         # class-token EMA (train:382-391), guarded like the updates
         fmask = agreement_mask(aux["cmask"], aux["logits"].argmax(dim=-1), batch["sup_mask"])
@@ -320,12 +338,33 @@ class TrainStep:
 
         new_state = state.replace(params=params, rparams=rparams, dparams=dparams,
                                   momentum=momentum, tokens=tokens, step=state.step + 1)
+        return new_state, self.step_metrics(aux, batch, lr, total, d_loss, g_ok, d_ok)
+
+    def disc_step(self, state: TrainState, aux, batch, total):
+        """The discriminator's step on detached inputs (train:325-368): its
+        gradients, under a data group averaged with its loss and the total
+        loss, and its Adam update behind its own guard: (dparams, its loss,
+        its guard, total)."""
+        disc_lr = poly_lr(self.cfg.disc_lr, state.epoch, self.cfg.num_epochs)  # train:325
+        d_loss, dgrads = self.disc_grads(state, aux, batch)
+        if self.group is not None:
+            dgrads, losses = tree_mean([dgrads, {"d": d_loss, "t": total}], self.group)
+            d_loss, total = losses["d"], losses["t"]
+        d_ok = all_finite(dgrads)
+        dparams = select_tree(d_ok, fresh_adam_update(state.dparams, dgrads, disc_lr),
+                              state.dparams)
+        return dparams, d_loss, d_ok, total
+
+    def step_metrics(self, aux, batch, lr, total, d_loss, g_ok, d_ok) -> dict:
+        """The step's metrics (device scalars)."""
+        nfg = self.cfg.num_classes - 1
+        space = self.space
         labels = batch["label"].long()
         dice = organ_scores(aux["logits"], labels, nfg, space)[0]
         labels0 = space.gather_rows(labels[:1]) if split(space) else labels[:1]
         rdice = refiner_organ_scores(aux["rlogits"], labels0, nfg)[0]
         supw = batch["sup_mask"][1:].float()
-        metrics = {
+        return {
             "loss": total,
             "seg_loss": aux["seg_loss"],
             "refine_loss": aux["refine_loss"],
@@ -338,7 +377,6 @@ class TrainStep:
             "disc_grads_finite": d_ok.float(),
             "lr": torch.as_tensor(lr, dtype=torch.float32),
         }
-        return new_state, metrics
 
 
 def make_train_step(model, refiner, disc, cfg: StepConfig) -> TrainStep:

@@ -3,7 +3,8 @@ backward on both routes, the GroupNorm fold statistics, the resize3d
 upsample forward and backward) against their plain PyTorch versions on the
 GPU, the model's gradients and feam2 on the card, the ablation U-Nets on the
 card (kernel vs plain, and their trunks bit-equal to the FEAM's), the train
-step (bit-equal reruns; with and without remat) on the card, and the device
+step (bit-equal reruns; with and without remat) and the step ladder's full
+rung (``tools/step_ablate.py``, bit-equal to it) on the card, and the device
 data pipeline.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
@@ -844,3 +845,39 @@ def test_spatial_step_two_gloo_ranks_on_one_card(cuda_device):
     relu = sum(n for k, n in calls["gn_apply"].items() if k[0] == "relu")
     assert sums == dxs == relu == sum(calls["gn_moments"].values()) > 0
     assert sum(calls["gn_relu_backward"].values()) > 0  # the refiner's, unsplit
+
+
+@pytest.mark.cuda
+def test_ladder_full_rung_on_the_card_is_train_step(cuda_device):
+    """tools/step_ablate.py: the full rung of the ladder against TrainStep on
+    the kernels, tiny_step_config, bf16, B = 2, the ladder's batch with organ
+    5 supervised: every tensor of the new state bit for bit (the step is
+    deterministic on the card), and the launches of the hand-written kernels
+    do not rise down the ladder."""
+    from multimodal_pl_tpu_torch.tools import step_ablate
+    from multimodal_pl_tpu_torch.train.loop import to_device
+    from multimodal_pl_tpu_torch.train.state import (
+        build_models, create_train_state, tiny_step_config)
+    from multimodal_pl_tpu_torch.train.step import TrainStep
+
+    cfg = tiny_step_config(compute_dtype=torch.bfloat16)
+    host = step_ablate.ladder_batch((32, 32, 32), 2)
+    host["sup_mask"] = np.eye(14, dtype=np.float32)[5]
+    batch = to_device(host, cfg, cuda_device)
+    models = tuple(m.to(cuda_device) for m in build_models(cfg))
+    state = create_train_state(torch.Generator().manual_seed(0), cfg).to(cuda_device)
+    lr, wf = torch.tensor(5e-4, device=cuda_device), torch.tensor(0.05, device=cuda_device)
+    got, m = step_ablate.AblatedStep(*models, cfg)(state, batch, lr, wf)
+    want, wm = TrainStep(*models, cfg)(state, batch, lr, wf)
+    for group in ("params", "rparams", "dparams", "tokens"):
+        a, b = getattr(got, group), getattr(want, group)
+        assert all(torch.equal(a[k], b[k]) for k in b), group
+    for i in range(2):
+        assert all(torch.equal(got.momentum[i][k], want.momentum[i][k]) for k in want.momentum[i])
+    assert torch.equal(m["loss"], wm["loss"]) and float(wm["refine_loss"]) > 0
+    calls = []
+    for _, kw in step_ablate.RUNGS:
+        before = step_ablate.kernel_calls()
+        step_ablate.AblatedStep(*models, cfg, **kw)(state, batch, lr, wf)
+        calls.append(sum(step_ablate.kernel_calls().values()) - sum(before.values()))
+    assert calls[0] > 0 and calls == sorted(calls, reverse=True), calls

@@ -1,7 +1,8 @@
 """The port's boundary and entry point: importing every port module (the
 data-parallel and the asset ones among them), and parsing the CLIs'
 arguments (mpl-evaluate's --pallas_k2, --fused_gn, --bd and --mesh among
-them; mpl-preprocess-torch's and mpl-atlas-torch's), loads
+them; mpl-preprocess-torch's and mpl-atlas-torch's; the step ladder's,
+``tools/step_ablate.py``), loads
 no JAX and no module of the JAX package;
 mpl-evaluate-torch accepts every flag of mpl-evaluate with mpl-train-torch's
 semantics, and runs end to end on a synthetic AMOS-layout set on the CPU.
@@ -41,6 +42,9 @@ from multimodal_pl_tpu_torch.cli import atlas, preprocess
 preprocess.get_arguments().parse_args(["--images_dir", "raw/imagesTr", "--out_images", "i",
                                        "--out_labels", "l"])
 atlas.get_arguments().parse_args(["--labels_dir", "l"])
+from multimodal_pl_tpu_torch.tools import step_ablate
+step_ablate.get_arguments().parse_args(["--steps", "3", "--patch", "64,96,96", "--batch", "3",
+                                        "--route", "plain", "--rungs", "full,segonly"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "multimodal_pl_tpu")
 print(json.dumps({"names": names, "bad": bad, "ref": ref}))
@@ -75,6 +79,7 @@ def test_port_imports_no_jax():
             "multimodal_pl_tpu_torch.tools.campaign",
             "multimodal_pl_tpu_torch.tools.campaign_eval",
             "multimodal_pl_tpu_torch.tools.route_probe",
+            "multimodal_pl_tpu_torch.tools.step_ablate",
             "multimodal_pl_tpu_torch.data.preprocess", "multimodal_pl_tpu_torch.data.lists",
             "multimodal_pl_tpu_torch.data.atlas", "multimodal_pl_tpu_torch.cli.preprocess",
             "multimodal_pl_tpu_torch.cli.atlas"} <= set(got["names"]), got
