@@ -197,7 +197,15 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bias |mean(kernel - f32)| / rms(f32) <= 1e-3 for each of the nine
    kernels, and the refiner's gradient-free pass over 8 batches, kernel
    against plain bf16, its pooled foreground shift within 5 standard errors;
-   then every kernel at every shape either path launched against its plain
+   the forks of tools/campaign.py run --fork_from: the 6-epoch state
+   copied into a fresh snapshot directory per route and trained one epoch
+   at seed 10 on the kernel route and on the plain bf16 route, with the
+   counts set to 0 before each: both resume at step 36 and log steps 37-42
+   only, their first total loss within rel 3e-2 (phase 7's route limit),
+   their held-out label maps by the kernel evaluator agreeing on >= 0.95 of
+   each case's voxels, every training kernel launched by the kernel fork
+   and none by the plain fork, each route's s/epoch printed;
+   then every kernel at every shape a path launched against its plain
    version, timed, as in phases 2 and 6;
 16. the spatial train step (parallel/spatial.py make_spatial_train_step:
    a B = 1 patch's H axis split over ranks through the forward, the losses
@@ -2765,6 +2773,12 @@ CAMPAIGN_AGREE = 0.95                   # kernel vs plain label maps per case (p
 # CAMPAIGN_REST_Z of its standard error (clean |z| <= 1.6 at those states; a
 # +0.5%-of-rms plant at its last GroupNorm -> ReLU reads 262 at tiny widths)
 CAMPAIGN_BIAS, CAMPAIGN_REST_Z, CAMPAIGN_REST_BATCHES = 1e-3, 5.0, 8
+# phase 15's forks (tools/campaign.py run --fork_from): the 6-epoch state
+# continued for one epoch at seed CAMPAIGN_FORK_SEED on the kernel route and
+# on the plain bf16 route; both resume at step 36, their first logged total
+# loss within CAMPAIGN_FORK_LOSS (phase 7's route limit, relative) and their
+# held-out label maps, by the kernel evaluator, within CAMPAIGN_AGREE
+CAMPAIGN_FORK_SEED, CAMPAIGN_FORK_LOSS = 10, 3e-2
 ROUTE_PROBE_KERNELS = sorted(["conv3x3 train_fwd", "conv3x3 train_dx", "conv3x3 fused",
                               "conv3x3 prologue_off", "fold", "gn_relu forward",
                               "gn_relu backward", "resize3d forward", "resize3d backward"])
@@ -2912,33 +2926,126 @@ def phase_campaign(dev, results, root):
           f"{min(agree_f32['plain bf16']):.5f} (worst cases; the dtype's share)", flush=True)
     check(min(agree) >= CAMPAIGN_AGREE, f"campaign label maps kernel vs plain agree {agree}")
 
-    # every shape either path launched, kernel vs plain, timed
-    train_table = phase_train_conv(dev, results, {k for k in train_calls["conv3x3"]
+    forks = campaign_forks(dev, root, snap)
+    fcalls = forks.pop("calls")
+
+    # every shape a path launched, kernel vs plain, timed
+    train_table = phase_train_conv(dev, results, {k for c in (train_calls, fcalls)
+                                                  for k in c["conv3x3"]
                                                   if k[0] == conv3x3.TRAIN_FWD})
-    nograd = {k for c in (train_calls, kcalls) for k in c["conv3x3"]
+    nograd = {k for c in (train_calls, kcalls, fcalls) for k in c["conv3x3"]
               if k[0] in (conv3x3.FUSED, conv3x3.PROLOGUE_OFF)}
     conv_table = {}
     for batch in sorted({k[3] for k in nograd}):
         conv_table.update(phase_kernels(
             dev, results, sorted((k[1], k[2], tuple(k[4:7]), k[0] == conv3x3.FUSED, k[7])
                                  for k in nograd if k[3] == batch), batch=batch, groups=4))
-    gn_table = phase_gn(dev, results, set(train_calls["gn_relu"]) | set(kcalls["gn_relu"]))
-    gn_bwd_table = phase_gn_bwd(dev, results, set(train_calls["gn_relu_backward"]))
-    fold_table = phase_fold(dev, results, set(train_calls["fold"]) | set(kcalls["fold"]))
+    every = (train_calls, kcalls, fcalls)
+    gn_table = phase_gn(dev, results, set().union(*(c["gn_relu"] for c in every)))
+    gn_bwd_table = phase_gn_bwd(dev, results, set(train_calls["gn_relu_backward"])
+                                | set(fcalls["gn_relu_backward"]))
+    fold_table = phase_fold(dev, results, set().union(*(c["fold"] for c in every)))
     resize_fwd, resize_bwd = phase_resize(dev, results,
-                                          set(train_calls["resize"]) | set(kcalls["resize"]),
-                                          set(train_calls["resize_backward"]))
+                                          set().union(*(c["resize"] for c in every)),
+                                          set(train_calls["resize_backward"])
+                                          | set(fcalls["resize_backward"]))
     probe = campaign_route_probe(dev, root, snap)
     results["campaign"] = {
-        "route_probe": probe,
+        "route_probe": probe, "forks": forks,
         "chunks": chunks, "train_s": train_s, "patches_per_sec": pps, "validation": vals,
         "train_calls": train_counts, "eval_calls": eval_counts, "label_agreement": agree,
         "label_agreement_vs_f32": agree_f32,
         "eval": {route: {k: v for k, v in out.items() if k != "cases"}
                  for route, out in evals.items()}}
-    return {"train": train_calls, "eval": kcalls, "conv_train": train_table,
+    return {"train": train_calls, "eval": kcalls, "fork": fcalls, "conv_train": train_table,
             "conv": conv_table, "gn_relu": gn_table, "gn_relu_backward": gn_bwd_table,
             "fold": fold_table, "resize": resize_fwd, "resize_backward": resize_bwd}
+
+
+def campaign_forks(dev, root, snap) -> dict:
+    """Phase 15's forks: the 6-epoch state in ``snap`` forked
+    (``run_chunks(fork_from=)``) into a fresh snapshot directory per route,
+    the kernel route and the plain bf16 route, each trained one epoch at
+    seed CAMPAIGN_FORK_SEED (LR horizon 7, validation at epoch 6), then both
+    final states evaluated by the kernel evaluator. Checks: both forks
+    resumed the copied checkpoint at step 36 and logged steps 37-42 only;
+    their first logged total loss within CAMPAIGN_FORK_LOSS of each other
+    (relative to plain's); their label maps agreeing on >= CAMPAIGN_AGREE of
+    each held-out case's voxels; the kernel fork launched every training
+    kernel, the plain fork none. Returns the tables, the seconds per epoch
+    and, under "calls", the kernel fork's launches."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    from multimodal_pl_tpu_torch.ops import conv3x3
+    from multimodal_pl_tpu_torch.tools import campaign, campaign_eval
+    from multimodal_pl_tpu_torch.tools.spawn import _launch_counts, _reset_launch_counts
+
+    per_epoch = campaign.steps_per_epoch(root)
+    base = os.path.join(snap, f"ckpt_{CAMPAIGN_EPOCHS * per_epoch}.pt")
+    out, calls, maps = {}, {}, {}
+    for route, flags in (("kernel", []), ("plain", ["--pallas_k2", "false",
+                                                    "--pallas_gn", "false"])):
+        fork = os.path.join(root, f"fork_{route}")
+        log = io.StringIO()
+        _reset_launch_counts()
+        with contextlib.redirect_stdout(log):
+            (chunk,) = campaign.run_chunks(
+                root, CAMPAIGN_EPOCHS + 1, CAMPAIGN_CHUNK, fork, val_every=1,
+                extra=["--device", str(dev), "--log_every", "1", "--seed",
+                       str(CAMPAIGN_FORK_SEED)] + flags, fork_from=base)
+        calls[route] = _launch_counts()
+        copied = os.path.join(fork, os.path.basename(base))
+        with open(os.path.join(fork, "train.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        steps = [r for r in recs if "loss" in r]
+        check(chunk["resumed_from"] == copied and f"loading from checkpoint: {copied}"
+              in log.getvalue() and [r["step"] for r in steps] == list(
+                  range(CAMPAIGN_EPOCHS * per_epoch + 1, (CAMPAIGN_EPOCHS + 1) * per_epoch + 1)),
+              f"the {route} fork did not resume {base} at step {CAMPAIGN_EPOCHS * per_epoch}: "
+              f"{chunk}, steps {[r['step'] for r in steps]}")
+        check(all(np.isfinite(v) for r in steps for k, v in r.items() if "loss" in k),
+              f"the {route} fork logged a non-finite loss")
+        ev = campaign_eval.evaluate(root, fork, 0, CAMPAIGN_TILE, device=dev, keep_maps=True,
+                                    say=log.write)
+        maps[route] = [c["label_map"] for c in ev["cases"]]
+        vals = [r["val/val_dice_ct_mean"] for r in recs if "val/val_dice_ct_mean" in r]
+        conv = Counter(k[0] for k in calls[route]["conv3x3"].elements())
+        (pps,) = [r["epoch/patches_per_sec"] for r in recs if "epoch/patches_per_sec" in r]
+        out[route] = {"start_step": steps[0]["step"] - 1, "first_loss": steps[0]["loss"],
+                      "s_per_epoch": per_epoch * campaign.BATCH / pps,
+                      "call_s": chunk["seconds"], "val_ct_mean": vals,
+                      "unsup_mean": ev["unsup_mean"],
+                      "launches": {**{spec: conv[spec] for spec in conv3x3.SPECS}, **{
+                          k: sum(calls[route][k].values()) for k in (
+                              "gn_relu", "gn_relu_backward", "fold", "resize",
+                              "resize_backward")}}}
+        print(f"[15] fork of the {CAMPAIGN_EPOCHS}-epoch state, {route} route, seed "
+              f"{CAMPAIGN_FORK_SEED}: {out[route]['s_per_epoch']:.3f} s/epoch ({pps:.2f} "
+              f"patches/s; the call {chunk['seconds']:.1f} s with process start, validation and "
+              f"checkpoint), from step {out[route]['start_step']}, "
+              f"first loss {steps[0]['loss']:.6f}, ct_mean {vals}, held-out unsupervised "
+              f"argmax {ev['unsup_mean']:.4f}", flush=True)
+    k, p = out["kernel"], out["plain"]
+    rel = abs(k["first_loss"] - p["first_loss"]) / max(abs(p["first_loss"]), 1e-12)
+    agree = [float((a == b).mean()) for a, b in zip(maps["kernel"], maps["plain"])]
+    out.update(first_loss_rel=rel, label_agreement=agree)
+    print(f"[15] forks: both from step {k['start_step']}; first total loss kernel "
+          f"{k['first_loss']:.6f} vs plain {p['first_loss']:.6f}, rel {rel:.2e} (limit "
+          f"{CAMPAIGN_FORK_LOSS}); label maps agree on {min(agree):.5f} of the voxels (worst "
+          f"of {len(agree)} cases, limit {CAMPAIGN_AGREE}); launches kernel {k['launches']}, "
+          f"plain {p['launches']}", flush=True)
+    check(k["start_step"] == p["start_step"] == CAMPAIGN_EPOCHS * per_epoch,
+          f"the forks resumed from steps {k['start_step']} and {p['start_step']}")
+    check(rel <= CAMPAIGN_FORK_LOSS, f"fork first losses kernel {k['first_loss']} plain "
+                                     f"{p['first_loss']}: rel {rel}")
+    check(len(agree) == 9 and min(agree) >= CAMPAIGN_AGREE, f"fork label maps agree {agree}")
+    check(all(v > 0 for v in k["launches"].values()),
+          f"the kernel fork left a kernel unlaunched: {k['launches']}")
+    check(not any(p["launches"].values()), f"the plain fork launched kernels: {p['launches']}")
+    out["calls"] = calls["kernel"]
+    return out
 
 
 def campaign_route_probe(dev, root, snap) -> dict:
@@ -2994,7 +3101,8 @@ def campaign_entries(run) -> list:
     train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX, conv3x3.PROLOGUE_OFF)
     out = []
     for path, tag in (("train", "campaign training, 6 epochs (validation at epoch 5)"),
-                      ("eval", "campaign held-out evaluation, 9 cases, kernel route")):
+                      ("eval", "campaign held-out evaluation, 9 cases, kernel route"),
+                      ("fork", "campaign fork of the 6-epoch state, 1 epoch, kernel route")):
         calls = run[path]
         specs = ((train_specs, K2, "conv3x3_train: conv3x3_gn prologue off (forward, dx; "
                                    "gradient-free refiner and validation)"),
@@ -3011,7 +3119,7 @@ def campaign_entries(run) -> list:
         kinds = [("gn_relu", "gn_relu forward (gn_relu_fwd_bf16)", GN_SOURCE, GN_RELU),
                  ("fold", "group_norm_fold statistics (gn_fold_bf16)", GN_SOURCE, GN_FOLD),
                  ("resize", "resize3d forward (upsample [+ skip])", RESIZE_SOURCE, RESIZE)]
-        if path == "train":
+        if path != "eval":
             kinds += [("gn_relu_backward", "gn_relu backward (gn_relu_bwd_bf16)", GN_SOURCE,
                        GN_BWD),
                       ("resize_backward", "resize3d backward (gather form)", RESIZE_SOURCE,
@@ -3652,17 +3760,23 @@ def phase_assets(dev, tmp):
 TTA_TILES = 8 * WINDOW_BATCH      # tiles per forward with flip TTA
 BIG_ROWS = (0, TTA_TILES - 1)     # the rows of a 32-tile output held against plain
 LADDER_STEPS = 3                  # timed steps per rung
+# with the refiner off the step drops the consistency term too (the JAX
+# ladder's construction), so these two rungs run one program
+SAME_STEP = ("norefiner", "segonly")
 ENSEMBLE_REL = 1e-6               # two members' blend vs the mean of theirs: f32 order only
 
 
 def phase_ladder(dev, results):
     """Phase 18: the ladder at B = PROD_B x PATCH on the kernel route,
     LADDER_STEPS timed steps and 3 profiled steps per rung. The full rung's
-    new state is TrainStep's bit for bit (the step is deterministic); the
-    kernel launches per step (profiler) and each
-    hand-written kernel's calls per step do not increase down the ladder;
-    every rung's losses are finite. Returns the hand-written kernels' calls
-    of the whole ladder run ({'conv3x3', ...}: Counter by key)."""
+    new state is TrainStep's bit for bit (the step is deterministic); each
+    hand-written kernel's calls per step do not increase down the ladder, nor
+    do the kernel launches per step (profiler) where a rung drops work; the
+    rungs of SAME_STEP run one program, so their metrics are bit-equal step
+    for step and their launch counts differ only by the profiler's spread
+    between runs, which is printed; every rung's losses are finite. Returns
+    the hand-written kernels' calls of the whole ladder run ({'conv3x3',
+    ...}: Counter by key)."""
     from collections import Counter
 
     from multimodal_pl_tpu_torch.ops import conv3x3, gn_relu, norm, resize
@@ -3699,10 +3813,17 @@ def phase_ladder(dev, results):
     rungs = step_ablate.run_ladder(PATCH, PROD_B, "kernel", steps=LADDER_STEPS, device=dev,
                                    say=lambda s: print("  " + s, flush=True))
     calls = {k: Counter(v) for k, v in counters.items()}
+    spread = None
     for a, b in zip(rungs, rungs[1:]):
-        check(b["launches"] <= a["launches"],
-              f"launches per step rise from {a['name']} ({a['launches']}) to {b['name']} "
-              f"({b['launches']})")
+        if (a["name"], b["name"]) == SAME_STEP:
+            check(a["metrics"] == b["metrics"] and a["kernel_calls"] == b["kernel_calls"],
+                  f"{b['name']} is not {a['name']}'s step: metrics {b['metrics']}, calls "
+                  f"{b['kernel_calls']} against {a['metrics']}, {a['kernel_calls']}")
+            spread = b["launches"] - a["launches"]
+        else:
+            check(b["launches"] <= a["launches"],
+                  f"launches per step rise from {a['name']} ({a['launches']}) to {b['name']} "
+                  f"({b['launches']})")
         for kind, n in b["kernel_calls"].items():
             check(n <= a["kernel_calls"][kind], f"{kind} calls per step rise from {a['name']} "
                   f"({a['kernel_calls'][kind]}) to {b['name']} ({n})")
@@ -3711,8 +3832,11 @@ def phase_ladder(dev, results):
               f"rung {r['name']}: losses {[m['loss'] for m in r['metrics']]}")
     print(f"[18] ladder, B={PROD_B} x {PATCH}, kernel route: launches per step "
           f"{[(r['name'], r['launches']) for r in rungs]}; hand-written kernel calls per step "
-          f"{[(r['name'], sum(r['kernel_calls'].values())) for r in rungs]}", flush=True)
-    results["ladder"] = {"rungs": rungs, "full_vs_train_step": "bit-equal", "leaves": leaves}
+          f"{[(r['name'], sum(r['kernel_calls'].values())) for r in rungs]}; {SAME_STEP} one "
+          f"program, bit-equal metrics, launches differ by {spread} (the profiler's spread)",
+          flush=True)
+    results["ladder"] = {"rungs": rungs, "full_vs_train_step": "bit-equal", "leaves": leaves,
+                         "same_step_launch_spread": spread}
     return calls
 
 

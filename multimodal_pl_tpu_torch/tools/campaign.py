@@ -13,7 +13,7 @@ the JAX script's. Training is ``mpl-train-torch``'s own ``main`` at
 
     python -m multimodal_pl_tpu_torch.tools.campaign train --root ROOT [--epochs 800]
     python -m multimodal_pl_tpu_torch.tools.campaign run --root ROOT [--epochs 2500] [--chunk 800] \
-        [--until EPOCH]
+        [--until EPOCH] [--snapshot_dir DIR --fork_from CKPT]
 
 Both modes write the fixture first unless ``--skip_gen`` is given.
 ``train`` trains once with the JAX script's argv. ``run`` trains in chunks
@@ -32,13 +32,27 @@ the training split (19 train cases at B = 3: 6). Arguments that neither
 mode knows go to every ``mpl-train-torch`` call after its own, so they
 override them (``--seed 1`` for a second seed, small model widths for a
 rehearsal). Both modes train on the GPU unless ``--device cpu`` is given.
+
+``run --fork_from CKPT`` forks a run: it copies the one checkpoint into the
+snapshot directory, which must be empty or absent, and trains from that
+checkpoint's epoch, so the new ``train.jsonl`` holds the fork's epochs only.
+Forks of one checkpoint at one ``--seed`` draw the same batches whatever
+the route, since the device pipeline draws from the seed alone. A fork of
+the epoch-1000 state of a ``--chunk 1000 --until 1000`` run:
+
+    python -m multimodal_pl_tpu_torch.tools.campaign run --root ROOT --skip_gen \
+        --snapshot_dir ROOT/fork_plain10 --fork_from ROOT/snapshots/ckpt_6000.pt \
+        --epochs 2500 --chunk 1000 --until 1500 --seed 10 --pallas_k2 false --pallas_gn false
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
+import hashlib
 import os
+import shutil
 import time
 
 # two full coverage passes of the CT supervision ranges (labels 3..13,
@@ -154,19 +168,65 @@ def resume_epoch(snapshot_dir: str, per_epoch: int):
     return checkpoint_step(snapshot_dir, os.path.basename(path)) // per_epoch, path
 
 
+def checkpoint_digest(path: str) -> str:
+    """sha256 over a ``ckpt_<step>.pt``'s tensors in field and name order:
+    equal for the same state whatever the file's bytes."""
+    import torch
+
+    from multimodal_pl_tpu_torch.train.checkpoint import restore_checkpoint
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(k.encode())
+                feed(x[k])
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                feed(v)
+        else:
+            h.update(x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy())
+
+    state = restore_checkpoint(path)
+    for field in dataclasses.fields(state):
+        h.update(field.name.encode())
+        feed(getattr(state, field.name))
+    return h.hexdigest()
+
+
+def fork_checkpoint(ckpt: str, snapshot_dir: str) -> str:
+    """Copy the checkpoint file ``ckpt`` into ``snapshot_dir``, which must be
+    empty or absent; returns the copy's path."""
+    if os.path.isdir(snapshot_dir) and os.listdir(snapshot_dir):
+        raise ValueError(f"fork into {snapshot_dir}: the directory is not empty")
+    if not os.path.isfile(ckpt):
+        raise FileNotFoundError(f"fork from {ckpt}: no such checkpoint file")
+    os.makedirs(snapshot_dir, exist_ok=True)
+    dst = os.path.join(snapshot_dir, os.path.basename(ckpt))
+    shutil.copyfile(ckpt, dst)
+    return dst
+
+
 def run_chunks(root: str, total: int, chunk: int, snapshot_dir: str = "",
                batch_size: int = BATCH, val_every: int = 100, extra=(),
-               train_main=None, until: int = 0) -> list:
+               train_main=None, until: int = 0, fork_from: str = "") -> list:
     """Train epochs 0 .. ``total`` in chunks of ``chunk`` epochs, each
     resumed from the latest checkpoint, through ``train_main`` (default:
     mpl-train-torch's ``main``) with ``chunk_argv`` + ``extra``; with
-    ``until``, stop at that epoch (the LR horizon stays ``total``). Returns
+    ``until``, stop at that epoch (the LR horizon stays ``total``); with
+    ``fork_from``, first copy that checkpoint into the empty snapshot
+    directory (``fork_checkpoint``), so the run starts at its epoch. Returns
     one record per chunk run: start, stop, the checkpoint it resumed from,
     the latest checkpoint after it, the step it ended at and its seconds."""
     if train_main is None:
         from multimodal_pl_tpu_torch.cli.train import main as train_main
     snap = snapshot_dir or os.path.join(root, "snapshots")
     per_epoch = steps_per_epoch(root, batch_size)
+    if fork_from:
+        copied = fork_checkpoint(fork_from, snap)
+        print(f"forked {fork_from} into {snap} at epoch {resume_epoch(snap, per_epoch)[0]} "
+              f"(state sha256 {checkpoint_digest(copied)})", flush=True)
     end = min(until, total) if until else total
     records = []
     while True:
@@ -195,6 +255,9 @@ def main(argv=None):
     p.add_argument("--chunk", type=int, default=800, help="run: epochs per chunk")
     p.add_argument("--until", type=int, default=0,
                    help="run: stop at this epoch, the LR horizon staying --epochs (0: the end)")
+    p.add_argument("--fork_from", default="",
+                   help="run: copy this checkpoint into the empty --snapshot_dir and train on "
+                        "from its epoch")
     p.add_argument("--val_every", type=int, default=0,
                    help="validation cadence in epochs (default: 50 for train, 100 for run)")
     p.add_argument("--batch_size", type=int, default=BATCH)
@@ -204,6 +267,8 @@ def main(argv=None):
                    help="supervision csv in which every organ 1..13 supervises >= 1 train case")
     p.add_argument("--device", default="cuda", help="cuda (default; raises without a GPU) or cpu")
     args, extra = p.parse_known_args(argv)
+    if args.fork_from and args.mode != "run":
+        p.error("--fork_from needs the run mode")
     if not args.skip_gen:
         generate(args.root, ct_only=args.ct_only, full_coverage=args.full_coverage)
     snap = args.snapshot_dir or os.path.join(args.root, "snapshots")
@@ -214,7 +279,8 @@ def main(argv=None):
         return train_main(train_argv(args.root, snap, args.epochs or 800, args.batch_size,
                                      args.val_every or 50) + extra)
     records = run_chunks(args.root, args.epochs or 2500, args.chunk, snap, args.batch_size,
-                         args.val_every or 100, extra, until=args.until)
+                         args.val_every or 100, extra, until=args.until,
+                         fork_from=args.fork_from)
     for r in records:
         print(f"chunk {r['start']} -> {r['stop']}: resumed from {r['resumed_from']}, "
               f"ended at step {r['step']} ({r['checkpoint']}), {r['seconds']:.1f} s")
