@@ -34,7 +34,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bf16) over seeded 128 x 256 x 256 volumes (12 windows): a uint8 label map
    of labels < 14, 66 conv, 54 fold, 51 gn_relu and 12 resize3d calls per
    volume, agreement with the plain model's label map; then predict_iter
-   over 5 volumes (s/vol);
+   over 3 volumes (s/vol);
 5. the evaluation entry point: mpl-evaluate-torch's main() on 2 synthetic
    cases with random weights written as .npz; its CSV;
 6. the training kernels vs their plain versions at every shape one
@@ -81,20 +81,20 @@ Phases, each of which raises (non-zero exit) on any failed check:
    (remat adds the recompute of the 22 segmenter stage convs and 33 stage
    GroupNorms), ms/step, peak memory, logical-FLOP MFU
    (utils/flops.train_step_flops against 989 TFLOP/s);
-10. the device data pipeline and the production entry point on 16
+10. the device data pipeline and the production entry point on 5
    synthetic cases at the AMOS grid (256 x 256 x 128; made by a worker
    process while phases 1-9 run): DeviceDataPipeline batches on the card
    equal the host path's crops at the same corners, its intensity recipe
    at fixed parameters is within 1 bf16 ulp of numpy/scipy f32; then
-   mpl-train-torch --batch_size 3 --device_data true --remat true for 2
-   epochs with validation after each, a checkpoint and a resumed epoch
+   mpl-train-torch --batch_size 3 --device_data true --remat true for one
+   epoch with validation after it, a checkpoint and a resumed epoch
    (every step's train-conv and gn_relu-backward calls as in phase 9), and
-   the same epochs with --device_data false: patches/s of both; then the
+   the same epoch with --device_data false: patches/s of both; then the
    first --device_data true run again through ``torchrun --nproc_per_node 1``
    with --mesh data:1 (NCCL; the data-parallel step over one rank): its final
    checkpoint bit-equal to the run without --mesh, and its patches/s;
 11. the re-profile: tools/profile_chip.py over one serving tile batch and
-   the B = 1, B = 3 and B = 3 remat steps, device ms by kernel category; no
+   one B = 1, B = 3 and B = 3 remat step each, device ms by kernel category; no
    library trilinear-resize kernel runs in any of them, and resize3d
    launches 4 kernels per serving tile batch and 29 per step (17 forward,
    12 backward);
@@ -287,7 +287,7 @@ VOL = (128, 256, 256)
 TILE = (64, 192, 192)
 NC = 14
 WINDOW_BATCH = 4
-N_STREAM = 5
+N_STREAM = 3
 BDX = "multimodal_pl_tpu/ops/pallas/bdx.py:247"
 BK3 = "multimodal_pl_tpu/ops/pallas/bk3_conv.py:163"
 K2 = "multimodal_pl_tpu/ops/pallas/k2_conv.py:338"
@@ -324,6 +324,7 @@ GRAD_REL_LIMIT = 0.2
 LEAF_RATIO = 1.4
 LEAF_FLOOR = 1e-2
 PROD_B = 3                  # run_amos_atlas_final.sh's --batch_size
+PROD_EPOCH = 6              # phase 10's validated epoch (the loop validates from 5)
 # remat vs no remat on the kernels: the step is deterministic (a rerun gives
 # the same bits), so the recompute reproduces the forward and each gradient
 # leaf may differ by at most REMAT_LEAF_REL relative (0 expected); a
@@ -337,8 +338,12 @@ AMAP_C, AMAP_DTYPE = NC - 1, "float32"
 # batch; 17 forward and 12 backward calls per train step, one launch each
 PROFILE_RESIZE_LAUNCHES = {"serving_tile_batch": 4, "train_step": 29, "train_step_b3": 29,
                            "train_step_b3_remat": 29}
+# profiled calls per path (phase 11) and steps per ladder rung (phase 18): the
+# profiler's parsing takes ~2 s per B = 3 step, while a step's launch count
+# moves by ~12 between runs and the closest adjacent rungs differ by ~58
+PROFILE_CALLS = 1
 AMOS_GRID = (256, 256, 128)  # (H, W, D) of an AMOS case after preprocessing
-AMOS_CASES = (14, 2)         # synthetic CT, MRI cases: 11 train (3 steps of B = 3), 1 valid
+AMOS_CASES = (4, 1)          # synthetic CT, MRI cases: 3 train (1 step of B = 3), 1 valid (CT)
 
 # (Cin, Cout, (D, H, W), prologue, residual) of every conv3x3_gn call in one
 # forward of a 4 x 64 x 192 x 192 tile batch
@@ -434,10 +439,10 @@ def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
         FUSED, PROLOGUE_OFF as OFF, conv3x3_gn, conv3x3_gn_reference)
     from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
 
-    g = torch.Generator().manual_seed(1)
+    g, gen = torch.Generator().manual_seed(1), torch.Generator(dev).manual_seed(1)
     table = {}
     for cin, cout, (d, h, w_), prologue, with_res in shapes:
-        x = torch.randn((batch, d, h, w_, cin), generator=g).to(dev, torch.bfloat16)
+        x = torch.randn((batch, d, h, w_, cin), generator=gen, device=dev).to(torch.bfloat16)
         w = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(
             dev, torch.bfloat16)
         a = b = res = None
@@ -448,7 +453,8 @@ def phase_kernels(dev, results, shapes=SHAPES, batch=WINDOW_BATCH, groups=16):
             t = torch.relu(x.float() * a[:, None, None, None] + b[:, None, None, None]).to(
                 x.dtype)
         if with_res:
-            res = torch.randn((batch, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
+            res = torch.randn((batch, d, h, w_, cout), generator=gen, device=dev).to(
+                torch.bfloat16)
         k = conv3x3_gn(x, w, a, b, res)
         torch.cuda.synchronize()
         p = conv3x3_gn_reference(x, w, a, b, res)
@@ -486,10 +492,11 @@ def phase_fold(dev, results, keys):
     call gives GroupNorm statistics alone, so there is no library time."""
     from multimodal_pl_tpu_torch.ops.norm import group_norm_fold
 
-    g = torch.Generator().manual_seed(6)
+    g, gen = torch.Generator().manual_seed(6), torch.Generator(dev).manual_seed(6)
     table = {}
     for c, groups, batch, d, h, w in sorted(keys):
-        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        x = (torch.randn((batch, d, h, w, c), generator=gen, device=dev) * 2 + 0.5).to(
+            torch.bfloat16)
         sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
         bi = (0.1 * torch.randn(c, generator=g)).to(dev)
         ka, kb = group_norm_fold(x, sc, bi, groups, impl="kernel")
@@ -703,10 +710,11 @@ def phase_gn(dev, results, gn_keys, name="gn_relu"):
     write y."""
     from multimodal_pl_tpu_torch.ops.gn_relu import group_norm_relu, group_norm_relu_reference
 
-    g = torch.Generator().manual_seed(3)
+    g, gen = torch.Generator().manual_seed(3), torch.Generator(dev).manual_seed(3)
     table = {}
     for c, groups, batch, d, h, w in sorted(gn_keys):
-        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        x = (torch.randn((batch, d, h, w, c), generator=gen, device=dev) * 2 + 0.5).to(
+            torch.bfloat16)
         sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
         bi = (0.1 * torch.randn(c, generator=g)).to(dev)
         x_cl = x.permute(0, 4, 1, 2, 3)
@@ -765,7 +773,7 @@ def phase_resize(dev, results, fwd_keys, bwd_keys=()):
 
     from multimodal_pl_tpu_torch.ops import resize
 
-    g = torch.Generator().manual_seed(9)
+    gen = torch.Generator(dev).manual_seed(9)
     tables = ({}, {})
     for backward, keys in ((False, fwd_keys), (True, bwd_keys)):
         for key in sorted(keys, key=str):
@@ -774,7 +782,7 @@ def phase_resize(dev, results, fwd_keys, bwd_keys=()):
             out = (b, d * factor, h * factor, w * factor, c)
             reps = 5 if b * d * h * w * c * factor ** 3 > 2 ** 26 else 20
             if backward:
-                dy = torch.randn(out, generator=g).to(dev, dt)
+                dy = torch.randn(out, generator=gen, device=dev).to(dt)
                 k1, k2 = (resize.upsample_backward(dy, factor) for _ in range(2))
                 torch.cuda.synchronize()
                 p = resize.upsample_trilinear_backward_reference(dy.float(), factor)
@@ -784,8 +792,8 @@ def phase_resize(dev, results, fwd_keys, bwd_keys=()):
                     lambda: resize.upsample_trilinear_backward_reference(dy, factor), reps)
                 del dy, k2
             else:
-                x = torch.randn((b, d, h, w, c), generator=g).to(dev, dt)
-                sk = torch.randn(out, generator=g).to(dev, dt) if key[7] else None
+                x = torch.randn((b, d, h, w, c), generator=gen, device=dev).to(dt)
+                sk = torch.randn(out, generator=gen, device=dev).to(dt) if key[7] else None
                 k1 = resize.upsample_forward(x, factor, sk)
                 torch.cuda.synchronize()
                 p = resize.upsample_trilinear_reference(x.float(), factor,
@@ -852,11 +860,12 @@ def phase_gn_bwd(dev, results, gn_keys):
     from multimodal_pl_tpu_torch.ops.gn_relu import (
         gn_relu_backward, gn_relu_forward, group_norm_relu_backward_reference)
 
-    g = torch.Generator().manual_seed(8)
+    g, gen = torch.Generator().manual_seed(8), torch.Generator(dev).manual_seed(8)
     table = {}
     for c, groups, batch, d, h, w in sorted(gn_keys):
-        x = (torch.randn((batch, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
-        dy = torch.randn((batch, d, h, w, c), generator=g).to(dev, torch.bfloat16)
+        x = (torch.randn((batch, d, h, w, c), generator=gen, device=dev) * 2 + 0.5).to(
+            torch.bfloat16)
+        dy = torch.randn((batch, d, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
         sc = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
         bi = (0.1 * torch.randn(c, generator=g)).to(dev)
         _, stats = gn_relu_forward(x, sc, bi, groups)
@@ -910,14 +919,14 @@ def phase_train_conv(dev, results, conv_keys):
     from multimodal_pl_tpu_torch.ops.conv3x3 import (
         conv3x3_gn, conv3x3_gn_reference, conv3x3_train, weight_grad)
 
-    g = torch.Generator().manual_seed(4)
+    g, gen = torch.Generator().manual_seed(4), torch.Generator(dev).manual_seed(4)
     table = {}
     fwd = sorted(k for k in conv_keys if k[0] == conv3x3.TRAIN_FWD)
     for _, cin, cout, batch, d, h, w_, _ in fwd:
-        x = torch.randn((batch, d, h, w_, cin), generator=g).to(dev, torch.bfloat16)
+        x = torch.randn((batch, d, h, w_, cin), generator=gen, device=dev).to(torch.bfloat16)
         w = standardize_kernel(torch.randn((cout, cin, 3, 3, 3), generator=g)).to(
             dev, torch.bfloat16)
-        gy = torch.randn((batch, d, h, w_, cout), generator=g).to(dev, torch.bfloat16)
+        gy = torch.randn((batch, d, h, w_, cout), generator=gen, device=dev).to(torch.bfloat16)
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
         y = conv3x3_train(xr, wr)
         dx, dw = torch.autograd.grad(y, (xr, wr), gy)
@@ -1504,9 +1513,9 @@ def phase_feam2(dev, results, weights):
 def phase_production_cli(tmp, data, step_calls):
     """Phase 10, second part: mpl-train-torch with the production flags
     (--batch_size 3 --device_data true --remat true) on the synthetic AMOS
-    cases: epochs 5 and 6 of 7 with validation after each, a checkpoint,
-    epoch 7 resumed; every step launched exactly phase 9's calls of the
-    remat step (conv3x3 train and gn_relu backward). Then the same epochs on
+    cases: epoch PROD_EPOCH with validation after it, a checkpoint, the
+    next epoch resumed; every step launched exactly phase 9's calls of the
+    remat step (conv3x3 train and gn_relu backward). Then the same epoch on
     host batches (--device_data false, no validation). Patches/s of both
     from the epoch records. Then the first run again through torchrun with
     --mesh data:1 (``phase_mesh_train``)."""
@@ -1527,7 +1536,8 @@ def phase_production_cli(tmp, data, step_calls):
         t0 = time.perf_counter()
         conv3x3.reset_launches()
         gn_relu.reset_launches()
-        state = train.main(args + ["--start_epoch", "5", "--num_epochs", "7"])
+        state = train.main(args + ["--start_epoch", str(PROD_EPOCH),
+                                   "--num_epochs", str(PROD_EPOCH + 1)])
         steps = int(state.step)
         check(steps > 0, f"--device_data {path}: no step")
         train_specs = (conv3x3.TRAIN_FWD, conv3x3.TRAIN_DX)
@@ -1541,9 +1551,9 @@ def phase_production_cli(tmp, data, step_calls):
               f"--device_data {path}: gn_relu backward calls {dict(gn_relu.bwd_launches)}")
         rec = {"steps": steps}
         if path == "true":
-            resumed = train.main(args + ["--num_epochs", "8", "--start_epoch", "7",
-                                         "--reload_from_checkpoint", "true"])
-            check(int(resumed.step) == steps * 3 // 2,
+            resumed = train.main(args + ["--num_epochs", str(PROD_EPOCH + 2), "--start_epoch",
+                                         str(PROD_EPOCH + 1), "--reload_from_checkpoint", "true"])
+            check(int(resumed.step) == steps * 2,
                   f"resume from step {steps} ended at {int(resumed.step)}")
             rec["steps"] = int(resumed.step)
         with open(os.path.join(snap, "train.jsonl")) as f:
@@ -1554,7 +1564,7 @@ def phase_production_cli(tmp, data, step_calls):
                                   if "epoch/patches_per_sec" in r]
         vals = [r for r in recs if "val/val_dice_ct_mean" in r]
         if path == "true":
-            check([r["step"] for r in vals] == [5, 6, 7]
+            check([r["step"] for r in vals] == [PROD_EPOCH, PROD_EPOCH + 1]
                   and all(np.isfinite(v) for r in vals for v in r.values()
                           if isinstance(v, float)), f"validation records {vals}")
         rec.update(losses=losses, validation=vals, s=time.perf_counter() - t0,
@@ -1562,15 +1572,15 @@ def phase_production_cli(tmp, data, step_calls):
         out[f"device_data_{path}"] = rec
         print(f"[10] mpl-train-torch --batch_size {PROD_B} --remat true --device_data {path}: "
               f"{rec['steps']} steps, patches/s per epoch {[round(v, 3) for v in rec['patches_per_sec']]}"
-              f"{', validation after epochs 5-7, checkpoint, resumed' if path == 'true' else ''} "
+              f"{', validation after each, checkpoint, resumed' if path == 'true' else ''} "
               f"({rec['s']:.1f} s)", flush=True)
     out["mesh_data_1"] = phase_mesh_train(tmp, base, out["device_data_true"])
     return out
 
 
 def phase_mesh_train(tmp, base, plain):
-    """Phase 10, last part: the --device_data true run's first part (epochs 5
-    and 6 of 7, validation after each) through torchrun with --mesh data:1
+    """Phase 10, last part: the --device_data true run's first part (epoch
+    PROD_EPOCH, validation after it) through torchrun with --mesh data:1
     (one NCCL rank: the data-parallel step, its gradient averages an
     all_reduce over one rank): its final checkpoint holds the bits of the
     run without --mesh. Patches/s of both."""
@@ -1581,7 +1591,8 @@ def phase_mesh_train(tmp, base, plain):
     t0 = time.perf_counter()
     torchrun("multimodal_pl_tpu_torch.cli.train",
              base + ["--device_data", "true", "--snapshot_dir", snap, "--val_pred_every", "1",
-                     "--start_epoch", "5", "--num_epochs", "7", "--mesh", "data:1"], tmp)
+                     "--start_epoch", str(PROD_EPOCH), "--num_epochs", str(PROD_EPOCH + 1),
+                     "--mesh", "data:1"], tmp)
     secs = time.perf_counter() - t0
     got = restore_checkpoint(latest_checkpoint(snap))
     steps = plain["first_run_steps"]
@@ -1591,9 +1602,9 @@ def phase_mesh_train(tmp, base, plain):
         recs = [json.loads(line) for line in f]
     pps = [r["epoch/patches_per_sec"] for r in recs if "epoch/patches_per_sec" in r]
     print(f"[10] torchrun mpl-train-torch --mesh data:1 (NCCL) --batch_size {PROD_B} --remat true "
-          f"--device_data true, epochs 5-6: step {int(got.step)}, final state bit-equal to the "
-          f"run without --mesh: {not bad}; patches/s per epoch {[round(v, 3) for v in pps]} "
-          f"(without --mesh {[round(v, 3) for v in plain['patches_per_sec'][:2]]}) ({secs:.1f} s)",
+          f"--device_data true, epoch {PROD_EPOCH}: step {int(got.step)}, final state bit-equal "
+          f"to the run without --mesh: {not bad}; patches/s {[round(v, 3) for v in pps]} "
+          f"(without --mesh {[round(v, 3) for v in plain['patches_per_sec'][:1]]}) ({secs:.1f} s)",
           flush=True)
     check(int(got.step) == steps and not bad,
           f"--mesh data:1 ended at step {int(got.step)} (want {steps}); leaves that differ "
@@ -1622,9 +1633,10 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
 
     NCCL over one rank: the device ms of one step's two gradient averages
     (flatten, all_reduce, unflatten) at the flagship's widths, and the B = 3
-    step with and without the group in turns (5 timed steps each of P C C
+    step with and without the group in turns (3 timed steps each of P C C
     P). Two spawned
-    ranks on the card over gloo (NCCL takes one rank per card): one step
+    ranks on the card over gloo (NCCL takes one rank per card), one spawn
+    for both cases: one step
     each at the production B = 3 per rank and the flagship defaults
     (64 x 192 x 192, bf16, kernels, no remat) from
     one seeded state on shards with different data and supervised organs,
@@ -1658,7 +1670,7 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
         step_ms = {"without": [], "one_rank": []}
         for name in ("without", "one_rank", "one_rank", "without"):
             fn = single if name == "without" else sharded
-            for i in range(6):
+            for i in range(4):
                 t0 = time.perf_counter()
                 fn(*args)
                 torch.cuda.synchronize()
@@ -1673,7 +1685,7 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
               f"all_reduce and divide {t['all_reduce_ms']:.4f} ms, flatten and unflatten "
               f"{t['flatten_unflatten_ms']:.4f} ms (the step's tree_mean; stream time, host "
               f"gaps included)", flush=True)
-    print(f"[12] B={PROD_B} step, P C C P x 5: median {np.median(step_ms['without']):.1f} ms "
+    print(f"[12] B={PROD_B} step, P C C P x 3: median {np.median(step_ms['without']):.1f} ms "
           f"without a group, {np.median(step_ms['one_rank']):.1f} ms over a one-rank NCCL "
           f"group", flush=True)
 
@@ -1689,9 +1701,21 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
                     for b in on_dev]
     del step, on_dev
     torch.cuda.empty_cache()
-    ranks = spawn.run(spawn.dp_step, 2, cfg, state, shards, lr, wf, "cuda:0", 10,
-                      backend="gloo", timeout=600)
+    model = UNet3DFEAM(deep_up=True).to(dev).eval()
+    model.load_state_dict(weights)
+    single = SlidingWindowPredictor(lambda t: model(t, aux=False), TILE, NC,
+                                    window_batch=WINDOW_BATCH, compute_dtype=torch.bfloat16,
+                                    device=dev, output="logits")(vol).cpu()
+    del model
+    torch.cuda.empty_cache()
+    run_key = ("logits", WINDOW_BATCH)
+    both = spawn.run(spawn.dp_calls, 2, [
+        (spawn.dp_step, (cfg, state, shards, lr, wf, "cuda:0", 3)),
+        (spawn.dp_predict, ({"deep_up": True}, {k: v.cpu() for k, v in weights.items()}, [vol],
+                            TILE, (run_key,), "cuda:0", torch.bfloat16))],
+        backend="gloo", timeout=900)
     secs = time.perf_counter() - t0
+    ranks = [r[0] for r in both]
     expected = step_expected(cfg, PROD_B)
     for r, (got, m, launches, _) in enumerate(ranks):
         bad = spawn.states_unequal(got, ref)
@@ -1707,33 +1731,19 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
           f"mean of the shards' {[round(v, 6) for v in shard_losses]}; kernel calls per rank = "
           f"one step's ({sum(sum(c.values()) for c in expected.values())}); gloo all_reduce of "
           f"{gloo[0]['mb']:.2f} MB {gloo[0]['all_reduce_ms']:.2f} ms (host-staged, not NCCL) "
-          f"({secs:.1f} s)", flush=True)
+          f"({secs:.1f} s with the predictor's spawn below)", flush=True)
     out["two_rank_step"] = {"bit_equal": True, "loss": ranks[0][1]["loss"],
                             "shard_losses": shard_losses, "gloo_times": gloo, "s": secs,
                             "launches": {k: sum(v.values()) for k, v in ranks[0][2].items()}}
     rank0_step_calls = ranks[0][2]
-    del ranks, ref
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    model = UNet3DFEAM(deep_up=True).to(dev).eval()
-    model.load_state_dict(weights)
-    single = SlidingWindowPredictor(lambda t: model(t, aux=False), TILE, NC,
-                                    window_batch=WINDOW_BATCH, compute_dtype=torch.bfloat16,
-                                    device=dev, output="logits")(vol).cpu()
-    del model
-    torch.cuda.empty_cache()
-    run_key = ("logits", WINDOW_BATCH)
-    (outs, same0, l0), (_, same1, l1) = spawn.run(
-        spawn.dp_predict, 2, {"deep_up": True}, {k: v.cpu() for k, v in weights.items()},
-        [vol], TILE, (run_key,), "cuda:0", torch.bfloat16, backend="gloo", timeout=600)
-    secs = time.perf_counter() - t0
+    (outs, same0, l0), (_, same1, l1) = (r[1] for r in both)
+    del ranks, ref, both
     got = outs[run_key][0]
     err = (got - single).abs().max().item()
     agree = (got.argmax(-1) == single.argmax(-1)).float().mean().item()
     print(f"[12] 2 gloo ranks on one card, sharded predictor over {VOL} (12 windows, batches of "
           f"{WINDOW_BATCH}, bf16 tiles): blended logits max |2 ranks - 1| {err:.3e}, argmax "
-          f"agreement {agree:.6f}, ranks bit-equal {same0 and same1} ({secs:.1f} s)", flush=True)
+          f"agreement {agree:.6f}, ranks bit-equal {same0 and same1}", flush=True)
     check(same0 and same1, "the sharded predictor's ranks returned different bits")
     check(tuple(got.shape) == (*VOL, NC) and err <= DP_PRED_ABS,
           f"sharded vs single blended logits: max abs {err} > {DP_PRED_ABS}")
@@ -1743,19 +1753,20 @@ def phase_data_parallel(dev, results, weights, vol, serving_calls):
             want = {key: n * batches for key, n in per_batch.items()}
             check(dict(launches[k]) == want, f"sharded serving rank {r} {k} calls "
                   f"{dict(launches[k])} != {batches} tile batches' {want}")
-    out["two_rank_serving"] = {"max_abs_err": err, "argmax_agreement": agree, "s": secs,
+    out["two_rank_serving"] = {"max_abs_err": err, "argmax_agreement": agree,
                                "launches": {k: sum(v.values()) for k, v in l0[run_key].items()}}
     results["data_parallel"] = out
     return rank0_step_calls, l0[run_key]
 
 
 def phase_profile():
-    """Phase 11: tools/profile_chip.py (a serving tile batch; the B = 1, B = 3
-    and B = 3 remat steps), and the resize categories of each: resize3d's
-    device ms and launches, and no kernel of the library's trilinear resize."""
+    """Phase 11: tools/profile_chip.py over PROFILE_CALLS calls of each path (a
+    serving tile batch; the B = 1, B = 3 and B = 3 remat steps), and the
+    resize categories of each: resize3d's device ms and launches, and no
+    kernel of the library's trilinear resize."""
     from multimodal_pl_tpu_torch.tools import profile_chip
 
-    prof = profile_chip.main()
+    prof = profile_chip.main(calls=PROFILE_CALLS)
     out = {}
     for name, r in prof.items():
         if not isinstance(r, dict):
@@ -2203,13 +2214,14 @@ def phase_gn_split(dev, results, moments_keys, apply_keys, n=SPACE_N):
     row}, {apply key: row})."""
     from multimodal_pl_tpu_torch.ops import gn_relu as G
 
-    g = torch.Generator().manual_seed(14)
+    g, gen = torch.Generator().manual_seed(14), torch.Generator(dev).manual_seed(14)
 
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
     def slab(c, b, d, h, w):
-        return (torch.randn((b, d, h, w, c), generator=g) * 2 + 0.5).to(dev, torch.bfloat16)
+        return (torch.randn((b, d, h, w, c), generator=gen, device=dev) * 2 + 0.5).to(
+            torch.bfloat16)
 
     tables = ({}, {})
     for key in sorted(moments_keys):
@@ -3189,13 +3201,14 @@ def phase_gn_bwd_split(dev, results, keys, n=SPACE_N):
     {key: dx row})."""
     from multimodal_pl_tpu_torch.ops import gn_relu as G
 
-    g = torch.Generator().manual_seed(16)
+    g, gen = torch.Generator().manual_seed(16), torch.Generator(dev).manual_seed(16)
 
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
     def slab(c, b, d, h, w, shift=0.5):
-        return (torch.randn((b, d, h, w, c), generator=g) * 2 + shift).to(dev, torch.bfloat16)
+        return (torch.randn((b, d, h, w, c), generator=gen, device=dev) * 2 + shift).to(
+            torch.bfloat16)
 
     tables = ({}, {})
     for key in sorted(keys):
@@ -3759,7 +3772,7 @@ def phase_assets(dev, tmp):
 # tensors pass 2^31 elements); the kernels at those shapes; ensembles
 TTA_TILES = 8 * WINDOW_BATCH      # tiles per forward with flip TTA
 BIG_ROWS = (0, TTA_TILES - 1)     # the rows of a 32-tile output held against plain
-LADDER_STEPS = 3                  # timed steps per rung
+LADDER_STEPS = 2                  # timed steps per rung
 # with the refiner off the step drops the consistency term too (the JAX
 # ladder's construction), so these two rungs run one program
 SAME_STEP = ("norefiner", "segonly")
@@ -3768,7 +3781,7 @@ ENSEMBLE_REL = 1e-6               # two members' blend vs the mean of theirs: f3
 
 def phase_ladder(dev, results):
     """Phase 18: the ladder at B = PROD_B x PATCH on the kernel route,
-    LADDER_STEPS timed steps and 3 profiled steps per rung. The full rung's
+    LADDER_STEPS timed steps and PROFILE_CALLS profiled steps per rung. The full rung's
     new state is TrainStep's bit for bit (the step is deterministic); each
     hand-written kernel's calls per step do not increase down the ladder, nor
     do the kernel launches per step (profiler) where a rung drops work; the
@@ -3811,6 +3824,7 @@ def phase_ladder(dev, results):
     norm.fold_launches.clear()
     resize.reset_launches()
     rungs = step_ablate.run_ladder(PATCH, PROD_B, "kernel", steps=LADDER_STEPS, device=dev,
+                                   profile_steps=PROFILE_CALLS,
                                    say=lambda s: print("  " + s, flush=True))
     calls = {k: Counter(v) for k, v in counters.items()}
     spread = None
@@ -4092,7 +4106,7 @@ def main() -> int:
         return 1
     from multimodal_pl_tpu_torch.utils.synthetic import make_synthetic_amos
 
-    # phase 10's cases at the AMOS grid take a minute of numpy and gzip, and
+    # phase 10's cases at the AMOS grid take ~20 s of numpy and gzip, and
     # phase 15's fixture 15 s: one worker process makes them while phases 1-9 run
     with (tempfile.TemporaryDirectory() as tmp,
           ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as maker):
@@ -4403,6 +4417,8 @@ def run_phases(amos_data, campaign_data) -> int:
     tta_calls, tta_batches, big = phase_tta(dev, results, model, plain, vol)
     phase_ensemble(dev, results, model, vol)
     phase_done("flip TTA and ensembles")
+    print("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in results["phase_s"].items())
+          + f"; total {sum(results['phase_s'].values()):.1f}", flush=True)
 
     entry = kernel_entry
     # serving: per 4-tile forward (times) and per volume (calls)

@@ -58,5 +58,6 @@ for name in $FORKS; do
 done
 wait "${PIDS[@]}"
 kill $SMI
+wait $SMI 2>/dev/null
 echo "done at $SECONDS s" >> "$OUT/times.txt"
 cat "$OUT/times.txt"

@@ -6,10 +6,11 @@ weights from fixed seeds.
 
     PYTHONPATH=. python3 -m multimodal_pl_tpu_torch.tools.profile_chip [OUTDIR]
 
-torch.profiler records each path over a few calls after warm-up; kernels are
-summed per category (by name), the device's busy time is the union of the
-kernel intervals, and the wall time is the host clock around the profiled
-calls. Writes ``OUTDIR/profile.json`` (default ``chiprun_out``).
+torch.profiler records each path over ``calls`` calls after warm-up (3 from
+the command line); kernels are summed per category (by name), the device's
+busy time is the union of the kernel intervals, and the wall time is the
+host clock around the profiled calls. Writes ``OUTDIR/profile.json``
+(default ``chiprun_out``).
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def _report(name: str, r: dict) -> None:
               f"{c['launches']:7.0f}  {cat}", flush=True)
 
 
-def main(outdir: str = "chiprun_out") -> dict:
+def main(outdir: str = "chiprun_out", calls: int = 3) -> dict:
     import numpy as np
     import torch
 
@@ -118,7 +119,7 @@ def main(outdir: str = "chiprun_out") -> dict:
     with torch.inference_mode():
         for _ in range(2):
             model(x, aux=False)
-        out["serving_tile_batch"] = _profile(lambda: model(x, aux=False), 3)
+        out["serving_tile_batch"] = _profile(lambda: model(x, aux=False), calls)
     _report("serving tile batch 4 x 64 x 192 x 192", out["serving_tile_batch"])
     del model, x
     torch.cuda.empty_cache()
@@ -145,7 +146,7 @@ def main(outdir: str = "chiprun_out") -> dict:
         for _ in range(4):
             one_step()
         name = "train_step" if batch == 1 else f"train_step_b{batch}" + ("_remat" * remat)
-        out[name] = _profile(one_step, 3)
+        out[name] = _profile(one_step, calls)
         _report(f"train step B = {batch} x 64 x 192 x 192, remat {remat}", out[name])
         del state, step, box, batch_t
         torch.cuda.empty_cache()

@@ -202,21 +202,21 @@ def time_rung(name, kw, models, cfg, batch, state, device, steps=8) -> dict:
     return rec
 
 
-def profile_rung(kw, models, cfg, batch, state, device) -> dict:
-    """``torch.profiler`` over PROFILE_STEPS steps after one warm-up step, per
+def profile_rung(kw, models, cfg, batch, state, device, steps=PROFILE_STEPS) -> dict:
+    """``torch.profiler`` over ``steps`` steps after one warm-up step, per
     step: device-busy ms, kernel launches and ms by category, and the
     profiled wall ms (inflated by the profiler's own tracing)."""
     from multimodal_pl_tpu_torch.tools.profile_chip import _profile
 
     one_step = _stepper(kw, models, cfg, batch, state, device)
     one_step()
-    prof = _profile(one_step, PROFILE_STEPS)
+    prof = _profile(one_step, steps)
     return {"device_busy_ms": prof["device_busy_ms"], "launches": prof["launches"],
             "profiled_wall_ms": prof["wall_ms"], "categories": prof["categories"]}
 
 
 def run_ladder(patch=(64, 192, 192), batch=1, route="kernel", rungs=None, steps=8,
-               device="cuda", say=print) -> list:
+               device="cuda", say=print, profile_steps=PROFILE_STEPS) -> list:
     """The records of the rungs named in ``rungs`` (default all), in the
     order of RUNGS, each with ``component_ms``: the previous rung's median
     less its own (None for the first). Every rung is timed first, then on
@@ -241,7 +241,7 @@ def run_ladder(patch=(64, 192, 192), batch=1, route="kernel", rungs=None, steps=
         _free(device)
     for rec, (_, kw) in zip(out, chosen):
         if device.type == "cuda":
-            rec.update(profile_rung(kw, models, cfg, dev_batch, state, device))
+            rec.update(profile_rung(kw, models, cfg, dev_batch, state, device, profile_steps))
             rec["busy_share"] = rec["device_busy_ms"] / rec["median_ms"]
             _free(device)
         say(rung_line(rec))
